@@ -6,7 +6,10 @@ every kernel wrapper runs its plain PyTorch version instead.
 
 Ported so far: the SHA-256 merkleization path of the per-slot state root
 (``ops.sha256``, ``ssz``, ``types``, ``ssz.tree_cache``,
-``state_transition.slot_processing``) for Deneb states.
+``state_transition.slot_processing``) for Deneb states, and BLS12-381 batch
+signature verification (``crypto.bls.verify_signature_sets(sets,
+backend="cuda")`` over ``ops.bls_backend``, ``ops.msm``, ``ops.ec``,
+``ops.bls12_381``, ``ops.bigint`` and ``ops.dispatch_pipeline``).
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""Carry a serialized beacon state into the port."""
+"""Carry serialized inputs into the port: beacon states and BLS signature
+sets."""
 
 from __future__ import annotations
 
@@ -14,3 +15,15 @@ def state_from_ssz(data: bytes, fork: str = "deneb", preset: str = "minimal"):
     if preset not in PRESETS:
         raise ValueError(f"unknown preset {preset!r}: use one of {sorted(PRESETS)}")
     return make_types(PRESETS[preset]).BeaconStateDeneb.deserialize(data)
+
+
+def signature_sets_from_bytes(items):
+    """The port's signature sets from serialized ones: each item is
+    ``(pubkeys, signature, message)`` with ``pubkeys`` a sequence of 48-byte
+    compressed G1 keys and ``signature`` 96 compressed G2 bytes, as the JAX
+    package's ``PublicKey.to_bytes`` and ``Signature.to_bytes`` give them."""
+    from lighthouse_tpu_torch.crypto.bls import api
+
+    return [api.SignatureSet(api.Signature(bytes(sig)), [api.PublicKey(bytes(pk)) for pk in pks],
+                             bytes(msg))
+            for pks, sig, msg in items]

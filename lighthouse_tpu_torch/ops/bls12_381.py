@@ -1,0 +1,356 @@
+"""BLS12-381 tower fields and the batched Miller loop: plain PyTorch versions.
+
+Counterpart of ``lighthouse_tpu/ops/bls12_381.py``.  Elements are tensors of
+Montgomery words (``ops/bigint.py``) with the tower as trailing axes:
+
+- Fp2  ``[..., 2, 12]``          (a, b) = a + b·u, u² = -1
+- Fp6  ``[..., 3, 2, 12]``       (c0, c1, c2) over Fp2, v³ = ξ = 1 + u
+- Fp12 ``[..., 2, 3, 2, 12]``    (c0, c1) over Fp6, w² = v
+
+so an Fp12 flattens to its 12 Fp coefficients in the order c0.c0.a,
+c0.c0.b, c0.c1.a, ..., c1.c2.b (``fq12_flat``), the layout of
+``csrc/bls_host.cc`` and of the CUDA kernels' Fq12 rows ``[N, 12, 12]``.
+
+A product in the tower has one value whatever formula computes it, so the
+products here are written for few PyTorch calls (an Fp12 product is one
+bilinear map over all 144 coefficient products with one lazy Montgomery
+reduction per output coefficient).  What must follow the JAX package
+formula for formula is everything whose value depends on the formula: the
+Jacobian coordinates of the curve points and the Miller loop's line
+scalings (``batch_miller_loop``).  Those are written here step for step as
+``lighthouse_tpu/ops/bls12_381.py:348-556`` writes them, so that the
+Miller values equal the JAX package's exactly, not only after the final
+exponentiation.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lighthouse_tpu_torch.crypto.bls.fields import BLS_X, Fq2, Fq6, Fq12
+from lighthouse_tpu_torch.ops import bigint as bi
+
+# MSB-first bits of |x| after the leading one: the Miller loop's 63 steps
+X_BITS = tuple(int(b) for b in bin(BLS_X)[3:])
+
+
+# --------------------------------------------------------------------------
+# Fp2 (componentwise ops are the Fp ops on the stacked pair)
+# --------------------------------------------------------------------------
+
+fp2_add = bi.add
+fp2_sub = bi.sub
+fp2_neg = bi.neg
+fp2_scale = bi.scale_small
+
+
+def fp2_mul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(a + bu)(c + du) = (ac - bd) + (ad + bc)u, as one bilinear map with
+    a lazy Montgomery reduction per coefficient (``_tower_mul``)."""
+    return _tower_mul(x, y, 0)
+
+
+def fp2_conj(x: torch.Tensor) -> torch.Tensor:
+    return torch.stack([x[..., 0, :], bi.neg(x[..., 1, :])], -2)
+
+
+def fp2_is_zero(x: torch.Tensor) -> torch.Tensor:
+    return (x == 0).all(-1).all(-1)
+
+
+def fp2_one_like(x: torch.Tensor) -> torch.Tensor:
+    return torch.stack([bi.one_like(x[..., 0, :]), torch.zeros_like(x[..., 1, :])], -2)
+
+
+class MulQueue:
+    """Collects independent products of one dependency round and runs them
+    as one stacked call (the JAX package's ``_MulQueue`` idea), so a round
+    costs a fixed number of PyTorch calls whatever its width."""
+
+    def __init__(self, mul=fp2_mul):
+        self._mul = mul
+        self._x: list = []
+        self._y: list = []
+        self._out = None
+
+    def __call__(self, x: torch.Tensor, y: torch.Tensor) -> int:
+        self._x.append(x)
+        self._y.append(y)
+        return len(self._x) - 1
+
+    def run(self) -> "MulQueue":
+        pairs = [torch.broadcast_tensors(x, y) for x, y in zip(self._x, self._y)]
+        shape = torch.broadcast_shapes(*(x.shape for x, _ in pairs))
+        xs = torch.stack([x.expand(shape) for x, _ in pairs])
+        ys = torch.stack([y.expand(shape) for _, y in pairs])
+        self._out = self._mul(xs, ys)
+        return self
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self._out[i]
+
+
+# --------------------------------------------------------------------------
+# Fp12 (and Fp6) products as one bilinear map each
+# --------------------------------------------------------------------------
+
+_SIZES = {0: 2, 1: 6, 2: 12}      # coefficients of Fp2, Fp6, Fp12
+
+
+def _basis(n_fp6: int, i: int):
+    """The i-th basis element of Fp2 (n_fp6 == 0), Fp6 (1) or Fp12 (2) as a
+    host tower element: coefficient index i = (c6·3 + c2)·2 + ab."""
+    vals = [0] * _SIZES[n_fp6]
+    vals[i] = 1
+
+    def fq6(v):
+        return Fq6(Fq2(v[0], v[1]), Fq2(v[2], v[3]), Fq2(v[4], v[5]))
+
+    if n_fp6 == 0:
+        return Fq2(vals[0], vals[1])
+    return fq6(vals) if n_fp6 == 1 else Fq12(fq6(vals[:6]), fq6(vals[6:]))
+
+
+def _coeffs(x) -> list[int]:
+    if isinstance(x, Fq2):
+        out = [x.a, x.b]
+    else:
+        fq6s = [x] if isinstance(x, Fq6) else [x.c0, x.c1]
+        out = [c for f6 in fq6s for f2 in (f6.c0, f6.c1, f6.c2) for c in (f2.a, f2.b)]
+    return [c if c < bi.P_INT // 2 else c - bi.P_INT for c in out]
+
+
+def _bilinear_table(n_fp6: int):
+    """Integer tensor coef[k, i, j]: coefficient k of e_i·e_j (small ints)."""
+    n = _SIZES[n_fp6]
+    coef = np.zeros((n, n, n), np.int64)
+    for i in range(n):
+        for j in range(n):
+            coef[:, i, j] = _coeffs(_basis(n_fp6, i) * _basis(n_fp6, j))
+    return coef
+
+
+_TABLES: dict = {}
+
+
+def _table(n_fp6: int, device):
+    key = (n_fp6, str(device))
+    t = _TABLES.get(key)
+    if t is None:
+        coef = _bilinear_table(n_fp6)
+        n = coef.shape[0]
+        flat = coef.reshape(n, n * n)
+        pos, neg = np.maximum(flat, 0), np.maximum(-flat, 0)
+        k_neg = int(neg.sum(1).max())
+        # digits of (k_neg·p²) so that pos - neg + offset stays non-negative
+        off = np.array([((k_neg * bi.P_INT ** 2) >> (16 * d)) & bi.M16 for d in range(48)],
+                       np.int64)
+        off[0] += 1                 # the +1 of the two's complement of neg
+        idx = np.arange(n * n)
+        # the reduced value stays below (k_pos + k_neg)·p², and the
+        # reduction's quotient below that over R, plus p
+        k_all = int((pos + neg).sum(1).max())
+        bound = 2 if k_all * bi.P_INT ** 2 // bi.R_INT + bi.P_INT < 2 * bi.P_INT else 8
+        t = dict(pos=torch.tensor(pos, device=device), neg=torch.tensor(neg, device=device),
+                 bound=bound,
+                 off=torch.tensor(off, device=device),
+                 i=torch.tensor(idx // n, device=device), j=torch.tensor(idx % n, device=device))
+        _TABLES[key] = t
+    return t
+
+
+def _tower_mul(x: torch.Tensor, y: torch.Tensor, n_fp6: int) -> torch.Tensor:
+    """x·y for flat coefficient rows [..., n, 12] (n = 2, 6 or 12): every
+    coefficient product as unreduced 16-bit columns, the integer bilinear
+    map, then one Montgomery reduction per output coefficient (the value
+    stays below 48·p², inside the reduction's 7·p·R bound)."""
+    tab = _table(n_fp6, x.device)
+    x, y = torch.broadcast_tensors(x, y)
+    cols = bi.poly_mul(bi._to16(x)[..., tab["i"], :], bi._to16(y)[..., tab["j"], :])
+    pos = (cols.unsqueeze(-3) * tab["pos"][:, :, None]).sum(-2)
+    neg = (cols.unsqueeze(-3) * tab["neg"][:, :, None]).sum(-2)
+    both, _ = bi._normalize(torch.stack([pos, neg]), 16, 3)
+    u, _ = bi._normalize(both[0] + (bi.M16 - both[1]) + tab["off"], 16, 2)
+    return bi.redc(u, tab["bound"])
+
+
+def fq12_flat(f: torch.Tensor) -> torch.Tensor:
+    """[..., 2, 3, 2, 12] -> [..., 12, 12] coefficient rows (a view)."""
+    return f.reshape(*f.shape[:-4], 12, 12)
+
+
+def fq12_nested(f: torch.Tensor) -> torch.Tensor:
+    return f.reshape(*f.shape[:-2], 2, 3, 2, 12)
+
+
+def fp12_mul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return fq12_nested(_tower_mul(fq12_flat(x), fq12_flat(y), 2))
+
+
+def fp6_mul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    flat = lambda t: t.reshape(*t.shape[:-3], 6, 12)  # noqa: E731
+    return _tower_mul(flat(x), flat(y), 1).reshape(*torch.broadcast_shapes(
+        x.shape, y.shape)[:-3], 3, 2, 12)
+
+
+def fp12_conj(f: torch.Tensor) -> torch.Tensor:
+    return torch.stack([f[..., 0, :, :, :], bi.neg(f[..., 1, :, :, :])], -4)
+
+
+def line_fp12(a0: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
+    """The sparse line a0 + a1·v + b1·v·w as a full Fp12 (zeros elsewhere)."""
+    z = torch.zeros_like(a0)
+    return torch.stack([torch.stack([a0, a1, z], -3), torch.stack([z, b1, z], -3)], -4)
+
+
+def fp12_sparse_mul(f, a0, a1, b1):
+    """f·(a0 + a1·v + b1·v·w), the line product of the Miller loop."""
+    return fp12_mul(f, line_fp12(a0, a1, b1))
+
+
+def fp12_one(batch: tuple, device) -> torch.Tensor:
+    f = torch.zeros(*batch, 2, 3, 2, 12, dtype=torch.int64, device=device)
+    f[..., 0, 0, 0, :] = bi._const("one", device)
+    return f
+
+
+# --------------------------------------------------------------------------
+# Miller loop (formula for formula the JAX batch_miller_loop, zp and zq)
+# --------------------------------------------------------------------------
+
+def _fp_times_fp2(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Fp scalar s [..., 12] broadcast as the Fp2 (s, 0) for a queued
+    product with an Fp2 x: (s·x.a, s·x.b)."""
+    return torch.stack([s, torch.zeros_like(s)], -2).expand(x.shape)
+
+
+def batch_miller_loop_plain(xp, yp, zp, xq, yq, zq, bits=X_BITS) -> torch.Tensor:
+    """Miller values of N lanes (int64 words): P Jacobian (xp, yp, zp: Fp
+    [N, 12]), Q Jacobian (xq, yq, zq: Fp2 [N, 2, 12]).  Returns Fp12
+    [N, 2, 3, 2, 12], conjugated for the negative x.
+
+    Follows ``lighthouse_tpu/ops/bls12_381.py::batch_miller_loop`` with
+    both ``zp`` and ``zq`` given, round by round: the tangent and chord
+    lines carry the subfield factor Zp³ and the chord the Fq2 factor Zq⁵,
+    which the final exponentiation removes.  ``bits`` defaults to the 63
+    bits of |x|; tests shorten it."""
+    n = xp.shape[0]
+    f = fp12_one((n,), xp.device)
+    X, Y, Z = xq, yq, zq
+    # loop invariants
+    q = MulQueue(bi.mont_mul)
+    i_zp2, i_xz = q(zp, zp), q(xp, zp)
+    q.run()
+    zp2, xz = q[i_zp2], q[i_xz]
+    zp3 = bi.mont_mul(zp2, zp)
+    zxq = fp2_mul(_fp_times_fp2(zp3, xq), xq)
+    zyq = fp2_mul(_fp_times_fp2(zp3, yq), yq)
+    zq2 = fp2_mul(zq, zq)
+    q = MulQueue()
+    i_zq3, i_xzq2 = q(zq2, zq), q(_fp_times_fp2(xz, zq2), zq2)
+    q.run()
+    zq3, xzq2 = q[i_zq3], q[i_xzq2]
+    ypq3 = fp2_mul(_fp_times_fp2(yp, zq3), zq3)
+    zp3_2 = _fp_times_fp2(zp3, xq)
+    xz_2 = _fp_times_fp2(xz, xq)
+    yp_2 = _fp_times_fp2(yp, xq)
+
+    for bit in bits:
+        q1 = MulQueue()
+        r_xx, r_yy, r_zz, r_yz = q1(X, X), q1(Y, Y), q1(Z, Z), q1(Y, Z)
+        q1.run()
+        fsq = fp12_mul(f, f)
+        xx, yy, zz, yz = q1[r_xx], q1[r_yy], q1[r_zz], q1[r_yz]
+        Z3 = fp2_scale(yz, 2)
+        E = fp2_scale(xx, 3)
+
+        q2 = MulQueue()
+        xb = fp2_add(X, yy)
+        r = [q2(xx, X), q2(xx, zz), q2(yz, zz), q2(yy, yy), q2(xb, xb), q2(E, E),
+             q2(Z3, Z3), q2(Z3, zq)]
+        q2.run()
+        xxx, xxzz, yzzz, c4, t, ff, zz2, z3zq = (q2[i] for i in r)
+        D = fp2_scale(fp2_sub(fp2_sub(t, xx), c4), 2)
+        X3 = fp2_sub(ff, fp2_scale(D, 2))
+        a0 = fp2_sub(fp2_scale(xxx, 3), fp2_scale(yy, 2))
+        s_a1 = fp2_scale(xxzz, 3)
+        s_b1 = fp2_scale(yzzz, 2)
+
+        q3 = MulQueue()
+        r = [q3(E, fp2_sub(D, X3)), q3(s_a1, xz_2), q3(s_b1, yp_2), q3(a0, zp3_2),
+             q3(Z3, zz2), q3(xq, zz2), q3(X3, zq2)]
+        q3.run()
+        ey, a1p, b1, a0s, zzz, xqzz2, u1 = (q3[i] for i in r)
+        Y3 = fp2_sub(ey, fp2_scale(c4, 8))
+        a1 = fp2_neg(a1p)
+        H = fp2_sub(xqzz2, u1)
+
+        f_dbl = fp12_sparse_mul(fsq, a0s, a1, b1)
+        q4 = MulQueue()
+        r = [q4(yq, zzz), q4(fp2_neg(H), Z3), q4(Y3, zq3), q4(z3zq, H)]
+        q4.run()
+        yqzzz, dl, s1, z3ah = (q4[i] for i in r)
+        Nl = fp2_sub(s1, yqzzz)
+
+        q5 = MulQueue()
+        r = [q5(Nl, zxq), q5(dl, zyq), q5(Nl, xzq2), q5(dl, ypq3), q5(H, H)]
+        q5.run()
+        nxq, dyq, c1, d1a, hh = (q5[i] for i in r)
+        c0a = fp2_sub(nxq, dyq)
+        c1a = fp2_neg(c1)
+        I4 = fp2_scale(hh, 4)
+        r_vec = fp2_scale(fp2_sub(yqzzz, s1), 2)
+
+        f_add = fp12_sparse_mul(f_dbl, c0a, c1a, d1a)
+        q6 = MulQueue()
+        r = [q6(H, I4), q6(u1, I4), q6(r_vec, r_vec)]
+        q6.run()
+        j, v, rr = (q6[i] for i in r)
+        X3a = fp2_sub(fp2_sub(rr, j), fp2_scale(v, 2))
+
+        q7 = MulQueue()
+        r = [q7(r_vec, fp2_sub(v, X3a)), q7(s1, j)]
+        q7.run()
+        rv, yj = (q7[i] for i in r)
+        Y3a = fp2_sub(rv, fp2_scale(yj, 2))
+        Z3a = fp2_scale(z3ah, 2)
+
+        if bit:
+            f, X, Y, Z = f_add, X3a, Y3a, Z3a
+        else:
+            f, X, Y, Z = f_dbl, X3, Y3, Z3
+    return fp12_conj(f)
+
+
+def reduce_product_plain(f: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Product of the lanes' Fp12 values [N, ...] with masked-out lanes
+    (mask False) taken as one -> [1, 2, 3, 2, 12]."""
+    one = fp12_one((1,), f.device)
+    f = torch.where(mask.reshape(-1, 1, 1, 1, 1), f, one)
+    while f.shape[0] > 1:
+        if f.shape[0] % 2:
+            f = torch.cat([f, one])
+        half = f.shape[0] // 2
+        f = fp12_mul(f[:half], f[half:])
+    return f
+
+
+# --------------------------------------------------------------------------
+# host boundary
+# --------------------------------------------------------------------------
+
+def fq12_to_words(f: Fq12) -> np.ndarray:
+    """Python Fq12 -> Montgomery words uint32[12, 12] (coefficient rows)."""
+    coeffs = [c for f6 in (f.c0, f.c1) for f2 in (f6.c0, f6.c1, f6.c2) for c in (f2.a, f2.b)]
+    return bi.ints_to_mont_limbs(coeffs)
+
+
+def fq12_from_words(words) -> Fq12:
+    """Montgomery words [12, 12] (or [1, 12, 12], or nested) -> Python Fq12."""
+    v = bi.mont_limbs_to_ints(np.asarray(words, np.uint32).reshape(12, 12))
+
+    def fq6(k):
+        return Fq6(Fq2(v[k], v[k + 1]), Fq2(v[k + 2], v[k + 3]), Fq2(v[k + 4], v[k + 5]))
+
+    return Fq12(fq6(0), fq6(6))
