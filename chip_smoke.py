@@ -8,9 +8,10 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
 
 Phases, each of which fails the run (non-zero exit) on any mismatch:
 
-1. Build every kernel source at once (nvcc for ``csrc/sha256.cu`` and
-   ``csrc/bls12_381.cu``, g++ for the host ``csrc/bls_host.cc``) and print
-   the SHA-256 build's ``-Xptxas -v`` report.
+1. Build every kernel source at once (nvcc for ``csrc/sha256.cu``,
+   ``csrc/bls12_381.cu`` and ``csrc/epoch.cu``, g++ for the host
+   ``csrc/bls_host.cc``) and print the SHA-256 build's ``-Xptxas -v``
+   report.
 2. Each SHA-256 kernel against its plain PyTorch version on the card, at
    the shapes of a 2^20-validator state root, bit for bit (tolerance 0:
    SHA-256 is integer arithmetic); the pair hash also against hashlib.
@@ -39,6 +40,24 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    signature outside G2, identity aggregate) must fail, chunked and
    monolithic verdicts must agree, small batches must agree with the host
    reference backend, and one block run is profiled.
+8. The epoch kernels against their plain PyTorch versions on the card,
+   tolerance 0 (integer arithmetic), on a 2^20-validator mainnet Deneb
+   state at the last slot of an epoch (``testing.epoch_state``): the fused
+   epoch pass over its 2^20 lanes, the shuffle rounds over the new epoch's
+   active set (and over 2^20 positions), and the single-block SHA-256 over
+   the shuffle's source messages, also against hashlib; the shuffle also
+   against ``compute_shuffled_index`` at sampled positions.
+9. The epoch main path, once for each fill of ``testing.epoch_state``:
+   the stress fill of phase 8, then a mainnet-shaped registry (what a
+   node crosses every epoch).  With the tree cache attached,
+   ``per_slot_processing`` across the epoch boundary, the new epoch's
+   ``compute_committee_shuffle``, then 4 cached slots with block-shaped
+   diffs.  Launch counts are read over each run alone (one epoch pass, one
+   shuffle, one single-block SHA-256 sweep).  Afterwards: the same steps
+   with the epoch and the shuffle on the CPU must give the same registry
+   digest, post-state root and shuffle, and each cached slot root must
+   equal the uncached one; then ``epoch_ms``, ``shuffle_device_ms`` and
+   one traced and one cProfiled boundary slot.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; the one before that the kernel table.
@@ -47,6 +66,7 @@ card's name and power limit; the one before that the kernel table.
 from __future__ import annotations
 
 import cProfile
+import hashlib
 import json
 import os
 import pstats
@@ -64,6 +84,8 @@ N_FULL = 1 << 20
 SLOTS = 8
 BLS_SEED = 20240314
 TIMED_RUNS = 5
+EPOCH_SEED = 20240315
+SLOTS_AFTER_EPOCH = 4
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64          # int32 ALU lanes per Hopper SM and clock
 IMAD_LANES_PER_SM = 64           # 32-bit integer multiply-adds per SM and clock
@@ -109,12 +131,12 @@ def main() -> int:
         build(name)
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = {name: pool.submit(timed_build, build, name) for build, name in (
             (native.build_cuda_lib, "sha256"), (native.build_cuda_lib, "bls12_381"),
-            (native.build_host_lib, "bls_host"))}
+            (native.build_cuda_lib, "epoch"), (native.build_host_lib, "bls_host"))}
         build_s = {name: job.result() for name, job in jobs.items()}
-    log(f"build sha256.cu {build_s['sha256']:.3f} s (all three sources built at once)")
+    log(f"build sha256.cu {build_s['sha256']:.3f} s (all four sources built at once)")
     for line in native.build_log("sha256").splitlines():
         if "ptxas" in line:
             log(f"  {line.strip()}")
@@ -286,7 +308,9 @@ def main() -> int:
     log(f"host profile of one slot (cumulative ms): "
         f"{ {k: round(v, 2) for k, v in sorted(host.items(), key=lambda kv: -kv[1])} }")
 
+    del state, replay
     bls_phases(torch, np, native, dev, table, build_s, max_mhz)
+    epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s)
 
     print(json.dumps({"kernels": list(table.values())}))
     print(card)
@@ -498,8 +522,29 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> None:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
                 prof.step()
-        with open(trace_path) as f:
-            events = json.load(f)["traceEvents"]
+        busy, spans, device_us = device_busy(trace_path)
+    per_run = {k.__name__: k.launches // 2 for k in bb.KERNELS}
+    expected = ["k_g2_subgroup", "k_g1_add_halves", "k_blinded_final", "k_gj_scalar_mul",
+                "k_g2_add_halves", "k_miller", "k_fq12_mul_halves"]
+    lost = [k for k in expected if not any(name.startswith(k) for name in device_us)]
+    log(f"profiled block batch: wall {wall_ms:.1f} ms, device busy {busy:.3f} ms "
+        f"({100 * (1 - busy / wall_ms):.1f}% idle; {spans} device spans, sum "
+        f"{sum(device_us.values()) / 1e3:.3f} ms); wrapper launches per run {per_run}; "
+        f"device time by name (us) "
+        f"{[(k, round(v, 1)) for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])]}")
+    if lost:
+        log(f"WARNING: the trace lacks kernels the run launched: {lost}; "
+            f"the busy figure above is short by their time")
+    fresh = T.fresh(block)
+    log(f"host profile of one block batch, top 5 by own time (ms): "
+        f"{host_top5(lambda: bls.verify_signature_sets(fresh, backend='cuda'))}")
+
+
+def device_busy(trace_path: str) -> tuple[float, int, dict]:
+    """(busy ms as the union of the trace's kernel and copy spans, number of
+    spans, device us by name) of a Chrome trace from torch.profiler."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
     spans, device_us = [], {}
     for ev in events:
         if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in ev:
@@ -510,30 +555,276 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> None:
     for a, b in sorted(spans):
         busy_us += max(0.0, b - max(a, end_us))
         end_us = max(end_us, b)
-    busy = busy_us / 1e3
-    per_run = {k.__name__: k.launches // 2 for k in bb.KERNELS}
-    expected = ["k_g2_subgroup", "k_g1_add_halves", "k_blinded_final", "k_gj_scalar_mul",
-                "k_g2_add_halves", "k_miller", "k_fq12_mul_halves"]
-    lost = [k for k in expected if not any(name.startswith(k) for name in device_us)]
-    log(f"profiled block batch: wall {wall_ms:.1f} ms, device busy {busy:.3f} ms "
-        f"({100 * (1 - busy / wall_ms):.1f}% idle; {len(spans)} device spans, sum "
-        f"{sum(device_us.values()) / 1e3:.3f} ms); wrapper launches per run {per_run}; "
-        f"device time by name (us) "
-        f"{[(k, round(v, 1)) for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])]}")
-    if lost:
-        log(f"WARNING: the trace lacks kernels the run launched: {lost}; "
-            f"the busy figure above is short by their time")
-    fresh = T.fresh(block)
+    return busy_us / 1e3, len(spans), device_us
+
+
+def host_top5(fn) -> list:
+    """The five functions with the most own time in one run of ``fn``
+    under cProfile, as (name, ms)."""
     prof_py = cProfile.Profile()
     prof_py.enable()
-    bls.verify_signature_sets(fresh, backend="cuda")
+    fn()
     prof_py.disable()
     stats = pstats.Stats(prof_py).stats
     own = sorted(((tt * 1e3, f"{func} ({fname.rsplit('/', 1)[-1]}:{line})")
                   for (fname, line, func), (_cc, _nc, tt, _ct, _callers) in stats.items()),
                  reverse=True)[:5]
-    log(f"host profile of one block batch, top 5 by own time (ms): "
-        f"{[(name, round(ms, 2)) for ms, name in own]}")
+    return [(name, round(ms, 2)) for ms, name in own]
+
+
+def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> None:
+    """Phases 8-9: the epoch boundary of a 2^20-validator Deneb state."""
+    from lighthouse_tpu_torch import testing as T
+    from lighthouse_tpu_torch.ops import epoch_kernels as ek
+    from lighthouse_tpu_torch.ops import sha256 as sha
+    from lighthouse_tpu_torch.state_transition import epoch_device, epoch_processing, misc
+    from lighthouse_tpu_torch.state_transition import shuffle
+
+    # -- 8. epoch kernels against their plain versions ----------------------
+    log(f"build epoch.cu {build_s['epoch']:.3f} s (built in parallel in phase 1)")
+    for line in native.build_log("epoch").splitlines():
+        if "Used" in line or ("spill" in line and "0 bytes spill stores" not in line):
+            log(f"  {line.strip()}")
+
+    def cuda_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def bound(ops: int, nbytes: int) -> tuple[float, str]:
+        ops_ms = ops / int32_ops_per_s * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+    t0 = time.perf_counter()
+    state, spec = T.epoch_state(N_FULL, EPOCH_SEED, "mainnet")
+    epoch = misc.current_epoch(state, spec)
+    log(f"built the {N_FULL}-validator epoch state (epoch {epoch}, slot {int(state.slot)}) "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    # the epoch pass at the main path's columns, tables and params
+    leak = epoch_processing.is_in_inactivity_leak(state, spec)
+    columns = epoch_device.build_columns(state, spec)
+    tables = epoch_device.build_tables(state, spec, leak=leak)
+    params = epoch_device.build_params(state, spec, leak=leak)
+    args = [torch.from_numpy(columns[c]).to(dev) for c in epoch_device.COLUMNS]
+    args += [torch.from_numpy(tables[k]).to(dev) for k in ("reward", "penalty", "slash")]
+    args.append(torch.from_numpy(params).to(dev))
+    k = tables["slash"].shape[0]
+    # the new epoch's shuffle: its active count, seed and source messages
+    # are those of the main path below (the epoch changes neither)
+    rounds = spec.preset.shuffle_round_count
+    count = int(state.validators.is_active(epoch + 1).sum())
+    seed = misc.get_seed(state, spec, epoch + 1, spec.domain_beacon_attester)
+    msgs = shuffle.source_messages(seed, rounds, count)
+    sha_state = sha.to_tensor(np.broadcast_to(sha._H0, (msgs.shape[0], 8)), dev)
+    sha_block = sha.to_tensor(sha.single_block_words(msgs), dev)
+    digest = sha.to_numpy(sha.sha256_block_device(sha_state, sha_block))
+    src = digest.astype(">u4").view(np.uint8).reshape(rounds, -1)
+    pivots = shuffle.shuffle_pivots(seed, rounds, count).astype(np.int32)
+    piv_t, src_t = torch.from_numpy(pivots).to(dev), torch.from_numpy(src.copy()).to(dev)
+    rng = np.random.default_rng(EPOCH_SEED)
+    full_seed = rng.bytes(32)
+    full_src = sha.sha256_msgs(shuffle.source_messages(full_seed, rounds, N_FULL), device=dev)
+    full_piv = torch.from_numpy(rng.integers(0, N_FULL, rounds).astype(np.int32)).to(dev)
+    full_src_t = torch.from_numpy(full_src.reshape(rounds, -1)).to(dev)
+
+    cases = [
+        # key, label, kernel, plain, args, ops, bytes, source, replaces, reps
+        ("epoch_pass", f"epoch_pass [{N_FULL} lanes, k {k}]", ek.fused_epoch_pass,
+         ek.fused_epoch_pass_plain, tuple(args), N_FULL * ek.EPOCH_OPS_PER_LANE,
+         N_FULL * ek.EPOCH_BYTES_PER_LANE + (7 * k + ek.N_PARAMS) * 8,
+         "lighthouse_tpu_torch/csrc/epoch.cu", "lighthouse_tpu/ops/epoch_kernels.py:101", 20),
+        ("shuffle_rounds", f"shuffle_rounds [{count} positions, {rounds} rounds]",
+         ek.shuffle_rounds, ek.shuffle_rounds_plain, (piv_t, src_t, count),
+         count * rounds * ek.SHUFFLE_OPS_PER_ROUND, src.size + 4 * rounds + 4 * count,
+         "lighthouse_tpu_torch/csrc/epoch.cu", "lighthouse_tpu/ops/epoch_kernels.py:224", 20),
+        ("shuffle_rounds@2^20", f"shuffle_rounds [{N_FULL} positions, {rounds} rounds]",
+         ek.shuffle_rounds, ek.shuffle_rounds_plain, (full_piv, full_src_t, N_FULL),
+         N_FULL * rounds * ek.SHUFFLE_OPS_PER_ROUND, full_src.size + 4 * rounds + 4 * N_FULL,
+         "", "", 20),
+        ("sha256_block", f"sha256_block [{msgs.shape[0]} lanes]", sha.sha256_block_device,
+         sha.sha256_block_plain, (sha_state, sha_block), msgs.shape[0] * sha.OPS_PER_BLOCK,
+         msgs.shape[0] * (32 + 64 + 32), "lighthouse_tpu_torch/csrc/sha256.cu",
+         "lighthouse_tpu/ops/sha256.py:157", 20),
+    ]
+    for key, label, kernel, plain, kargs, ops, nbytes, source, replaces, reps in cases:
+        got = kernel(*kargs)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(*kargs)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                  for g, w in zip(got, want))
+        if err != 0 or [g.shape for g in got] != [w.shape for w in want]:
+            raise SystemExit(f"{label}: kernel disagrees with its plain version (max err {err})")
+        ms = cuda_ms(lambda: kernel(*kargs), reps)
+        bound_ms, bound_by = bound(ops, nbytes)
+        log(f"kernel {label}: == plain (max err {err}); {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {ops} int32 operations, {nbytes} bytes)")
+        if source:
+            table[key] = dict(name=key, route="cuda", source=source, replaces=replaces,
+                              launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    hashed = np.stack([np.frombuffer(hashlib.sha256(m.tobytes()).digest(), np.uint8)
+                       for m in msgs])
+    if not np.array_equal(hashed, digest.astype(">u4").view(np.uint8).reshape(-1, 32)):
+        raise SystemExit("sha256_block: kernel disagrees with hashlib on the source messages")
+    fwd = ek.shuffle_rounds(piv_t, src_t, count).cpu().numpy()
+    sample = np.random.default_rng(EPOCH_SEED + 1).integers(0, count, 32)
+    if any(int(fwd[i]) != shuffle.compute_shuffled_index(int(i), count, seed, rounds)
+           for i in sample):
+        raise SystemExit("shuffle_rounds: kernel disagrees with compute_shuffled_index")
+    log(f"sha256_block == hashlib on all {msgs.shape[0]} source messages; shuffle_rounds == "
+        f"compute_shuffled_index at {sample.size} sampled positions")
+    del args, cases, sha_state, sha_block, full_src_t, piv_t, src_t
+
+    # -- 9. the main path at both fills: the stress fill whose shapes phase
+    # 8 checked, then a mainnet-shaped registry, what a node crosses
+    launches = boundary_path(torch, np, dev, state, spec, "stress")
+    for key, name in (("epoch_pass", "fused_epoch_pass"), ("shuffle_rounds", "shuffle_rounds"),
+                      ("sha256_block", "sha256_block_device")):
+        table[key]["launches"] = launches[name]
+    del state
+    t0 = time.perf_counter()
+    state, spec = T.epoch_state(N_FULL, EPOCH_SEED, "mainnet", fill="mainnet")
+    log(f"built the {N_FULL}-validator mainnet-fill epoch state in "
+        f"{time.perf_counter() - t0:.2f} s")
+    boundary_path(torch, np, dev, state, spec, "mainnet")
+
+
+def boundary_path(torch, np, dev, state, spec, fill: str) -> dict:
+    """Phase 9 for one fill of ``testing.epoch_state``: the boundary slot
+    with the tree cache, the new epoch's shuffle and 4 cached slots, with
+    the epoch launch counts read over this run alone; the same steps with
+    the epoch and the shuffle on the CPU; then the numbers.  Returns the
+    launch counts."""
+    from lighthouse_tpu_torch import testing as T
+    from lighthouse_tpu_torch.ops import epoch_kernels as ek
+    from lighthouse_tpu_torch.ops import sha256 as sha
+    from lighthouse_tpu_torch.ssz.tree_cache import enable_tree_cache
+    from lighthouse_tpu_torch.state_transition import (
+        misc,
+        per_slot_processing,
+        process_epoch,
+        process_slot,
+    )
+
+    epoch = misc.current_epoch(state, spec)
+
+    enable_tree_cache(state, dev)
+    state.hash_tree_root()
+    ref = state.copy()                          # the device="cpu" run's copy
+    del ref._tree_cache
+    timing = ref.copy()                         # for epoch_ms after the main path
+    profiled = [state.copy() for _ in range(3)]   # warm-up, traced, cProfiled crossings
+    torch.cuda.synchronize()
+    sha.reset_launches()
+    ek.reset_launches()
+    t0 = time.perf_counter()
+    boundary_root = per_slot_processing(state, spec)
+    torch.cuda.synchronize()
+    boundary_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    shuffled = misc.compute_committee_shuffle(state, spec, epoch + 1, device=dev)
+    shuffle_ms = (time.perf_counter() - t0) * 1e3
+    post_digest, post_root = T.registry_state_digest(state), state.hash_tree_root()
+    diff_rng = np.random.default_rng(EPOCH_SEED + 2)
+    slot_roots, slot_ms = [], []
+    for _ in range(SLOTS_AFTER_EPOCH):
+        T.slot_diff(state, spec, diff_rng)
+        t0 = time.perf_counter()
+        slot_roots.append(per_slot_processing(state, spec))
+        torch.cuda.synchronize()
+        slot_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"fused_epoch_pass": ek.fused_epoch_pass.launches,
+                "shuffle_rounds": ek.shuffle_rounds.launches,
+                "sha256_block_device": sha.sha256_block_device.launches}
+    merkle = {k.__name__: k.launches for k in sha.KERNELS}
+    if list(launches.values()) != [1, 1, 1]:
+        raise SystemExit(f"the boundary did not launch each epoch kernel once: {launches}")
+    log(f"main path, {fill} fill, {N_FULL} validators: boundary slot {boundary_ms:.1f} ms, new-epoch "
+        f"shuffle of {shuffled.shape[0]} ({shuffle_ms:.1f} ms), then slots "
+        f"{[round(m, 1) for m in slot_ms]} ms; launches {launches}, merkle kernels {merkle}")
+
+    # checks after the counted run: the same steps with the epoch and the
+    # shuffle on the CPU (plain versions; the roots hash uncached on the
+    # card, whose SHA kernels phase 2 held to their plain versions)
+    t0 = time.perf_counter()
+    ref_root = process_slot(ref, spec, dev)
+    process_epoch(ref, spec, "cpu")
+    ref.slot = int(ref.slot) + 1
+    ref_shuffled = misc.compute_committee_shuffle(ref, spec, epoch + 1, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if ref_root != boundary_root:
+        raise SystemExit("boundary slot: cached pre-state root != uncached root")
+    ref_digest, ref_root = T.registry_state_digest(ref), ref.hash_tree_root(dev)
+    replay_rng = np.random.default_rng(EPOCH_SEED + 2)
+    ref_slot_roots = []
+    for _ in range(SLOTS_AFTER_EPOCH):
+        T.slot_diff(ref, spec, replay_rng)
+        ref_slot_roots.append(per_slot_processing(ref, spec, dev))
+    if post_digest != ref_digest:
+        raise SystemExit(f"post-state registry digest: card {post_digest} != CPU {ref_digest}")
+    if post_root != ref_root:
+        raise SystemExit(f"post-state root: card {post_root.hex()} != CPU {ref_root.hex()}")
+    if not np.array_equal(shuffled, ref_shuffled):
+        raise SystemExit("new-epoch shuffle: card != CPU")
+    if slot_roots != ref_slot_roots:
+        raise SystemExit(f"cached slot roots {[r.hex()[:12] for r in slot_roots]} != uncached "
+                         f"{[r.hex()[:12] for r in ref_slot_roots]}")
+    log(f"{fill} fill: boundary == device='cpu' run ({cpu_ms:.1f} ms): registry digest {ref_digest}, "
+        f"post-state root {ref_root.hex()}, shuffle equal, {SLOTS_AFTER_EPOCH} cached slot "
+        f"roots == uncached")
+    del ref
+
+    # numbers: the epoch core alone, the warm shuffle, one traced and one
+    # cProfiled boundary slot
+    t0 = time.perf_counter()
+    stages = process_epoch(timing, spec, dev)
+    torch.cuda.synchronize()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    misc.compute_committee_shuffle(timing, spec, epoch + 1, device=dev)
+    shuffle_device_ms = (time.perf_counter() - t0) * 1e3
+    log(json.dumps({"fill": fill, "epoch_validators": N_FULL, "epoch_ms": epoch_ms,
+                    "epoch_validators_per_s": N_FULL / (epoch_ms / 1e3),
+                    "prep_host_ms": stages["prep_host_ms"], "dispatch_ms": stages["dispatch_ms"],
+                    "shuffle_device_ms": shuffle_device_ms, "boundary_slot_ms": boundary_ms}))
+    del timing
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "boundary.json")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(trace_path)) as prof:
+            for crossing in profiled[:2]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                per_slot_processing(crossing, spec)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        busy, spans, device_us = device_busy(trace_path)
+    lost = [k for k in ("k_fused_epoch_pass",) if not any(n.startswith(k) for n in device_us)]
+    log(f"{fill} fill, profiled boundary slot: wall {wall_ms:.1f} ms, device busy {busy:.3f} ms "
+        f"({100 * (1 - busy / wall_ms):.1f}% idle; {spans} device spans); device time by name "
+        f"(us) {[(n, round(v, 1)) for n, v in sorted(device_us.items(), key=lambda kv: -kv[1])][:8]}")
+    if lost:
+        log(f"WARNING: the trace lacks kernels the run launched: {lost}")
+    log(f"{fill} fill, host profile of one boundary slot, top 5 by own time (ms): "
+        f"{host_top5(lambda: per_slot_processing(profiled[2], spec))}")
+    return launches
 
 
 if __name__ == "__main__":

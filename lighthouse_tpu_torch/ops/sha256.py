@@ -1,9 +1,11 @@
 """Batched SHA-256 for SSZ merkleization: CUDA kernels and host helpers.
 
 Port of ``lighthouse_tpu/ops/sha256.py``.  Every (left, right) node pair of
-a tree level is one lane of a 64-byte SHA-256; the three kernels of
+a tree level is one lane of a 64-byte SHA-256; three kernels of
 ``csrc/sha256.cu`` hash a batch of pairs, build every interior level of a
-power-of-two tree, and fold a tree to its root.
+power-of-two tree, and fold a tree to its root.  A fourth runs one
+compression per lane (``sha256_block``): the single-block messages of the
+swap-or-not shuffle's source hashes (``sha256_msgs``).
 
 Words are the JAX package's: uint32 SHA-256 words in big-endian order,
 ``uint32[N, 16]`` per pair batch and ``uint32[N, 8]`` per node.  Tensors
@@ -76,6 +78,9 @@ _PAD_W = _np_schedule(_PAD_BLOCK)  # uint32[64]
 # Least int32 operations per 64-byte pair hash in sm_90 instructions (see
 # csrc/sha256.cu): 2 compressions x (64 rounds x 14 + 8) + 48 schedule words x 10.
 OPS_PER_PAIR = 2 * (64 * 14 + 8) + 48 * 10
+# ... and per single-block compression (``sha256_block``): one compression
+# and its 48 extended schedule words.
+OPS_PER_BLOCK = 64 * 14 + 8 + 48 * 10
 
 
 # --------------------------------------------------------------------------
@@ -119,12 +124,12 @@ def _compress(state: list[torch.Tensor], kw) -> list[torch.Tensor]:
     return [(x + y) & _M32 for x, y in zip(state, (a, b, c, d, e, f, g, h))]
 
 
-def hash_pairs_plain(pairs: torch.Tensor) -> torch.Tensor:
-    """Plain version of the ``hash_pairs`` kernel: int32[N, 16] -> int32[N, 8]."""
-    x = pairs.to(torch.int64) & _M32
-    w = [x[:, i] for i in range(16)]   # rolling 16-word schedule window
+def _data_kw(block: torch.Tensor):
+    """kw(t) = K[t] + W[t] of int64 data blocks [N, 16], the schedule
+    expanded in a rolling 16-word window."""
+    w = [block[:, i] for i in range(16)]
 
-    def data_kw(t: int):
+    def kw(t: int):
         if t >= 16:
             w15, w2 = w[(t + 1) % 16], w[(t + 14) % 16]
             s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
@@ -132,12 +137,30 @@ def hash_pairs_plain(pairs: torch.Tensor) -> torch.Tensor:
             w[t % 16] = (w[t % 16] + s0 + w[(t + 9) % 16] + s1) & _M32
         return w[t % 16] + int(_K[t])
 
+    return kw
+
+
+def _int32_words(words: list[torch.Tensor]) -> torch.Tensor:
+    """Eight int64 lanes of 32-bit values -> int32[N, 8] of the same bits."""
+    out64 = torch.stack(words, dim=1)
+    return ((out64 ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def hash_pairs_plain(pairs: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``hash_pairs`` kernel: int32[N, 16] -> int32[N, 8]."""
+    x = pairs.to(torch.int64) & _M32
     h0 = [torch.full((x.shape[0],), int(v), dtype=torch.int64, device=x.device)
           for v in _H0]
-    mid = _compress(h0, data_kw)
-    out = _compress(mid, lambda t: int(_K[t]) + int(_PAD_W[t]))
-    out64 = torch.stack(out, dim=1)
-    return ((out64 ^ 0x80000000) - 0x80000000).to(torch.int32)
+    mid = _compress(h0, _data_kw(x))
+    return _int32_words(_compress(mid, lambda t: int(_K[t]) + int(_PAD_W[t])))
+
+
+def sha256_block_plain(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``sha256_block`` kernel: one compression per
+    lane, int32[N, 8] chaining state and int32[N, 16] block -> int32[N, 8]."""
+    st = state.to(torch.int64) & _M32
+    kw = _data_kw(block.to(torch.int64) & _M32)
+    return _int32_words(_compress([st[:, i] for i in range(8)], kw))
 
 
 def fold_levels_plain(leaves: torch.Tensor) -> torch.Tensor:
@@ -173,7 +196,9 @@ def _lib() -> ctypes.CDLL:
         lib.lh_hash_pairs.argtypes = [ptr, ptr, i64, ptr]
         lib.lh_fold_levels.argtypes = [ptr, ptr, i64, ptr]
         lib.lh_fold_subtrees.argtypes = [ptr, ptr, i64, i32, ptr]
-        for fn in (lib.lh_hash_pairs, lib.lh_fold_levels, lib.lh_fold_subtrees):
+        lib.lh_sha256_block.argtypes = [ptr, ptr, ptr, i64, ptr]
+        for fn in (lib.lh_hash_pairs, lib.lh_fold_levels, lib.lh_fold_subtrees,
+                   lib.lh_sha256_block):
             fn.restype = ctypes.c_int
         lib.lh_error_string.argtypes = [ctypes.c_int]
         lib.lh_error_string.restype = ctypes.c_char_p
@@ -263,11 +288,33 @@ def fold_to_root_device(leaves: torch.Tensor) -> torch.Tensor:
     return x if x is not leaves else leaves.clone()
 
 
+def sha256_block_device(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """One SHA-256 compression per lane: int32[N, 8] chaining state and
+    int32[N, 16] message block -> int32[N, 8].  Replaces
+    ``lighthouse_tpu/ops/sha256.py:157``; any N (no power-of-two padding)."""
+    _check_words(state, 8, "sha256_block state")
+    _check_words(block, 16, "sha256_block block")
+    if state.shape[0] != block.shape[0] or state.device != block.device:
+        raise ValueError(f"sha256_block: state {list(state.shape)} on {state.device} and "
+                         f"block {list(block.shape)} on {block.device} do not pair up")
+    if block.device.type == "cpu":
+        return sha256_block_plain(state, block)
+    out = torch.empty_like(state)
+    if block.shape[0]:
+        with torch.cuda.device(block.device):
+            _launch("lh_sha256_block", state.data_ptr(), block.data_ptr(), out.data_ptr(),
+                    block.shape[0], _stream(block))
+        sha256_block_device.launches += 1
+    return out
+
+
+# the merkle kernels of the state root; ``sha256_block_device`` (the
+# shuffle's source hashes) counts its launches beside them
 KERNELS = (hash_pairs_device, fold_levels_device, fold_to_root_device)
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    for k in KERNELS + (sha256_block_device,):
         k.launches = 0
 
 
@@ -328,6 +375,42 @@ def batch_hash_pairs(pairs: np.ndarray, *, device: torch.device) -> np.ndarray:
     if pairs.shape[0] >= _DEVICE_MIN_PAIRS:
         return to_numpy(hash_pairs_device(to_tensor(pairs, device)))
     return hash_pairs_np(pairs)
+
+
+def sha256_msgs(msgs: np.ndarray, *, device: torch.device) -> np.ndarray:
+    """SHA-256 of N equal-length short messages: uint8[N, L] -> uint8[N, 32],
+    L <= 55, so each message pads into one 64-byte block on the host.
+
+    Batches of at least ``_DEVICE_MIN_PAIRS`` messages are one
+    ``sha256_block`` call on ``device``; smaller ones hash with hashlib.
+    That is the JAX package's routing by size, not a fallback: the kernel
+    never hands a batch to the host."""
+    n, length = msgs.shape
+    if length > 55:
+        raise ValueError("sha256_msgs handles single-block messages only")
+    if n < _DEVICE_MIN_PAIRS:
+        data = np.ascontiguousarray(msgs, dtype=np.uint8)
+        out = np.empty((n, 32), dtype=np.uint8)
+        for i in range(n):
+            out[i] = np.frombuffer(hashlib.sha256(data[i].tobytes()).digest(), np.uint8)
+        return out
+    state = to_tensor(np.broadcast_to(_H0, (n, 8)), device)
+    block = to_tensor(single_block_words(msgs), device)
+    digest = to_numpy(sha256_block_device(state, block))
+    return digest.astype(">u4").view(np.uint8).reshape(n, 32)
+
+
+def single_block_words(msgs: np.ndarray) -> np.ndarray:
+    """uint8[N, L] messages, L <= 55, each padded into its one SHA-256
+    block: uint32[N, 16] big-endian words (0x80, zeros, the bit length)."""
+    n, length = msgs.shape
+    if length > 55:
+        raise ValueError(f"a {length}-byte message does not fit one SHA-256 block")
+    blocks = np.zeros((n, 64), dtype=np.uint8)
+    blocks[:, :length] = msgs
+    blocks[:, length] = 0x80
+    blocks[:, 56:64] = np.frombuffer((length * 8).to_bytes(8, "big"), np.uint8)
+    return blocks.view(">u4").astype(np.uint32)
 
 
 def fold_levels(leaves: torch.Tensor) -> list[torch.Tensor]:

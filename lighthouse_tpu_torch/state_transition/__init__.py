@@ -1,8 +1,10 @@
-"""State transition: per-slot processing (epoch processing not ported yet)."""
+"""State transition: per-slot processing and the Deneb epoch transition."""
 
+from lighthouse_tpu_torch.state_transition.epoch_processing import process_epoch
 from lighthouse_tpu_torch.state_transition.slot_processing import (
     per_slot_processing,
     process_slot,
+    state_advance,
 )
 
-__all__ = ["per_slot_processing", "process_slot"]
+__all__ = ["per_slot_processing", "process_epoch", "process_slot", "state_advance"]

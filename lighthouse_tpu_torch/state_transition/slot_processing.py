@@ -1,8 +1,10 @@
-"""Per-slot processing.
+"""Per-slot processing and state advance.
 
 Port of ``lighthouse_tpu/state_transition/slot_processing.py``: caching the
-slot's state and block roots.  Epoch processing is not ported yet, so
-``per_slot_processing`` refuses to cross an epoch boundary.
+slot's state and block roots, and the Deneb epoch transition on the last
+slot of each epoch (``epoch_processing.process_epoch``).  Fork upgrades
+are not ported: a slot whose epoch, or the next, is not Deneb raises
+``NotImplementedError`` before anything is written.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from lighthouse_tpu_torch.device import resolve_device
+from lighthouse_tpu_torch.state_transition.epoch_processing import process_epoch
 from lighthouse_tpu_torch.types import BeaconBlockHeader, ChainSpec
 
 
@@ -35,13 +38,31 @@ def process_slot(state, spec: ChainSpec, device=None) -> bytes:
 
 
 def per_slot_processing(state, spec: ChainSpec, device=None) -> bytes:
-    """Advance the state by one slot within an epoch; returns the state
-    root cached for the slot it leaves.  Raises ``NotImplementedError``
-    when the next slot starts an epoch: epoch processing is not ported."""
-    if (int(state.slot) + 1) % spec.preset.slots_per_epoch == 0:
-        raise NotImplementedError(
-            f"slot {int(state.slot)} ends an epoch and epoch processing is "
-            "not ported yet")
+    """Advance the state by one slot, running the epoch transition when the
+    slot ends an epoch; returns the state root cached for the slot it
+    leaves.  With a tree cache attached, the cache's device is used."""
+    if getattr(state, "_tree_cache", None) is not None:
+        device = state._tree_cache.device if device is None else device
+    device = resolve_device(device)
+    ends_epoch = (int(state.slot) + 1) % spec.preset.slots_per_epoch == 0
+    if ends_epoch:
+        epoch = spec.compute_epoch_at_slot(int(state.slot))
+        forks = (spec.fork_at_epoch(epoch), spec.fork_at_epoch(epoch + 1))
+        if forks != ("deneb", "deneb"):
+            raise NotImplementedError(
+                f"slot {int(state.slot)} ends epoch {epoch} ({forks[0]}, next {forks[1]}): "
+                "only Deneb epochs are ported, without fork upgrades")
     state_root = process_slot(state, spec, device)
+    if ends_epoch:
+        process_epoch(state, spec, device)
     state.slot = int(state.slot) + 1
     return state_root
+
+
+def state_advance(state, spec: ChainSpec, target_slot: int, device=None) -> None:
+    """Run per-slot processing up to ``target_slot`` (complete state
+    advance)."""
+    if target_slot < int(state.slot):
+        raise ValueError("cannot advance backwards")
+    while int(state.slot) < target_slot:
+        per_slot_processing(state, spec, device)

@@ -7,12 +7,18 @@ and withdrawal credentials, 32 ETH effective balances and balances, no
 exits, zeroed participation and inactivity.  The rest of the state is
 random where a real state holds hashes (roots, mixes, sync committees).
 
+``epoch_state`` fills the registry for an epoch transition: as the JAX
+package's ``randomized_registry_state`` does (a stress fill that engages
+every stage), or in a live mainnet chain's proportions.
+
 The signature batches are the two of ``BASELINE.json``: the signature sets
 of one mainnet block (``block_signature_sets``) and the 1k-set
 ``verify_signature_sets`` microbench (``microbench_sets``).
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 
@@ -103,6 +109,175 @@ def build_state(n_validators: int, seed: int, preset: str = "mainnet"):
         next_withdrawal_validator_index=int(rng.integers(0, n)),
     )
     return state, spec
+
+
+def epoch_state(n_validators: int, seed: int, preset: str = "mainnet", fill: str = "stress"):
+    """A Deneb state of ``n_validators`` at the last slot of an epoch E, its
+    registry filled for an epoch transition.  Returns ``(state, spec)``.
+
+    ``fill="stress"`` (the default) is the JAX package's
+    ``randomized_registry_state`` fill (``lighthouse_tpu/testing.py:355``)
+    with ``eject_frac=0.0``, as its epoch benchmark uses at 2^20: every
+    stage engages, far beyond what a live chain does (half the effective
+    balances are at or below the ejection balance).  ``fill="mainnet"``
+    shapes the registry as a finalizing mainnet chain does
+    (``_mainnet_fill``): what an operator's node crosses every epoch.
+
+    E + 1 is no sync-committee period boundary, so the random pubkeys are
+    never decompressed.  The minimal preset's spec activates every fork
+    through Deneb at genesis."""
+    fills = {"stress": _stress_fill, "mainnet": _mainnet_fill}
+    if fill not in fills:
+        raise ValueError(f"unknown fill {fill!r}: use one of {sorted(fills)}")
+    state, spec = build_state(n_validators, seed, preset)
+    if preset != "mainnet":
+        spec = spec.with_forks_at(0, "deneb")
+        state.fork = Fork(previous_version=spec.capella_fork_version,
+                          current_version=spec.deneb_fork_version, epoch=0)
+    P = spec.preset
+    epoch = int(state.slot) // P.slots_per_epoch
+    if (epoch + 1) % P.epochs_per_sync_committee_period == 0:
+        raise ValueError(f"epoch {epoch} ends a sync-committee period")
+    fills[fill](state, spec, epoch, np.random.default_rng(seed))
+    state.slot = (epoch + 1) * P.slots_per_epoch - 1
+    header = state.latest_block_header
+    state.latest_block_header = BeaconBlockHeader(
+        slot=int(state.slot) - 1, proposer_index=header.proposer_index,
+        parent_root=header.parent_root, state_root=b"\x00" * 32, body_root=header.body_root)
+    return state, spec
+
+
+def _stress_fill(state, spec, epoch: int, rng: np.random.Generator) -> None:
+    """The reference's fill: random effective balances in whole increments,
+    20% not yet eligible, 10% not yet activated, 15% with a scheduled exit,
+    8% slashed (half of them on the slashings target), balances around the
+    effective ones, random participation flags and inactivity scores, and
+    one nonzero slashings entry.  The reference's epochs count from a
+    transition at epoch 1; here they are shifted to E, so that the
+    activation queue (eligibility at the finalized epoch), the exits and the
+    slashed lanes on the slashings target all engage."""
+    P = spec.preset
+    n = len(state.validators)
+    far = np.uint64(FAR_FUTURE_EPOCH)
+    shift = np.uint64(epoch - 1)
+    incr = spec.effective_balance_increment
+    v = state.validators
+    v.effective_balance = rng.integers(
+        0, spec.max_effective_balance // incr + 1, n).astype(np.uint64) * np.uint64(incr)
+    finalized = np.uint64(int(state.finalized_checkpoint.epoch))    # epoch - 2
+    v.activation_eligibility_epoch = np.where(rng.random(n) < 0.2, far, finalized)
+    v.activation_epoch = np.where(rng.random(n) < 0.1, far,
+                                  rng.integers(0, 3, n).astype(np.uint64) + shift)
+    exit_far = rng.random(n) < 0.85
+    v.exit_epoch = np.where(exit_far, far, rng.integers(3, 50, n).astype(np.uint64) + shift)
+    v.withdrawable_epoch = np.where(
+        v.exit_epoch == far, far,
+        v.exit_epoch + np.uint64(spec.min_validator_withdrawability_delay))
+    slashed = rng.random(n) < 0.08
+    v.slashed = slashed
+    v.exit_epoch[slashed] = np.uint64(5) + shift
+    target = epoch + P.epochs_per_slashings_vector // 2
+    idx = np.nonzero(slashed)[0]
+    v.withdrawable_epoch[idx] = rng.choice([target, target + 3], idx.size).astype(np.uint64)
+    rng.random(n)                   # the reference's ejection draw, at eject_frac 0
+    state.balances = (v.effective_balance.astype(np.int64)
+                      + rng.integers(-10**9, 2 * 10**9, n)).clip(0).astype(np.uint64)
+    state.previous_epoch_participation = rng.integers(0, 8, n, dtype=np.uint8)
+    state.current_epoch_participation = rng.integers(0, 8, n, dtype=np.uint8)
+    state.inactivity_scores = rng.integers(0, 200, n).astype(np.uint64)
+    state.slashings[0] = np.uint64(int(rng.integers(0, 64)) * incr)
+
+
+def _mainnet_fill(state, spec, epoch: int, rng: np.random.Generator) -> None:
+    """A finalizing chain's registry, in the proportions of mainnet's (set
+    by hand, not read from a chain): 2% exited and withdrawn (balance 0);
+    an activation queue of 0.5% at 32 ETH; one epoch's churn of new
+    deposits; a quarter of one epoch's churn ejected at the ejection
+    balance; twelve epochs of churn of voluntary exits already queued from
+    E + 1 on, so the ejections join a full tail; max(2, n / 65536) slashed
+    validators, half on the slashings target; the rest active since early
+    epochs, 99.5% of them at 32 ETH with up to 0.03 ETH of rewards since
+    the last withdrawal sweep and the others at 17-31 ETH, balances either
+    side of their hysteresis; 96% timely on all three flags, 2% on source
+    and target, 1% on source, 1% offline, in both epochs; inactivity
+    scores 0 but for 1% left over from an old leak."""
+    P = spec.preset
+    n = len(state.validators)
+    v = state.validators
+    far = np.uint64(FAR_FUTURE_EPOCH)
+    max_eff, incr = spec.max_effective_balance, spec.effective_balance_increment
+    delay = spec.min_validator_withdrawability_delay
+    churn = max(spec.min_per_epoch_churn_limit, n // spec.churn_limit_quotient)
+    counts = [n // 50, n // 200, churn, max(1, churn // 4), 12 * churn, max(2, n // 65536)]
+    if sum(counts) > n:
+        raise ValueError(f"{n} validators cannot hold the mainnet fill's groups {counts}")
+    rows = rng.permutation(n)[:sum(counts)]
+    withdrawn, pending, deposit, eject, exiting, slashed = np.split(rows, np.cumsum(counts)[:-1])
+
+    v.activation_eligibility_epoch = np.zeros(n, np.uint64)
+    v.activation_epoch = rng.integers(0, epoch // 2 + 1, n).astype(np.uint64)
+    v.effective_balance = np.full(n, max_eff, np.uint64)
+    tail = rng.random(n) < 0.005
+    v.effective_balance[tail] = rng.integers(17, 32, int(tail.sum())).astype(np.uint64) * incr
+    balances = v.effective_balance.astype(np.int64) + rng.integers(0, 3 * 10**7, n)
+    balances[tail] += rng.integers(-incr // 2, 3 * incr // 2, int(tail.sum()))
+    v.exit_epoch = np.full(n, far, np.uint64)
+    v.withdrawable_epoch = np.full(n, far, np.uint64)
+
+    v.activation_epoch[withdrawn] = 0
+    v.exit_epoch[withdrawn] = rng.integers(1, max(epoch - delay, 2), withdrawn.size)
+    v.withdrawable_epoch[withdrawn] = v.exit_epoch[withdrawn] + np.uint64(delay)
+    v.effective_balance[withdrawn] = 0
+    balances[withdrawn] = 0
+    finalized = int(state.finalized_checkpoint.epoch)
+    v.activation_eligibility_epoch[pending] = rng.integers(
+        max(finalized - 50, 0), finalized + 1, pending.size)
+    for group in (pending, deposit):
+        v.activation_epoch[group] = far
+        v.effective_balance[group] = max_eff
+        balances[group] = max_eff
+    v.activation_eligibility_epoch[deposit] = far
+    v.effective_balance[eject] = spec.ejection_balance
+    balances[eject] = spec.ejection_balance + rng.integers(0, incr // 2, eject.size)
+    v.exit_epoch[exiting] = np.uint64(epoch + 1) + np.arange(exiting.size, dtype=np.uint64) // np.uint64(churn)
+    v.withdrawable_epoch[exiting] = v.exit_epoch[exiting] + np.uint64(delay)
+    v.slashed = np.zeros(n, bool)
+    v.slashed[slashed] = True
+    v.activation_epoch[slashed] = 0
+    v.exit_epoch[slashed] = np.uint64(max(epoch - 1, 0))
+    target = epoch + P.epochs_per_slashings_vector // 2
+    v.withdrawable_epoch[slashed] = rng.choice([target, target + 3], slashed.size)
+    v.effective_balance[slashed] = max_eff
+    balances[slashed] = max_eff - max_eff // 32
+    state.balances = balances.astype(np.uint64)
+
+    flags = np.array([0b111, 0b011, 0b001, 0], np.uint8)
+    odds = [0.96, 0.02, 0.01, 0.01]
+    for name, at in (("previous_epoch_participation", epoch - 1),
+                     ("current_epoch_participation", epoch)):
+        part = flags[rng.choice(4, n, p=odds)]
+        part[~v.is_active(max(at, 0))] = 0
+        setattr(state, name, part)
+    scores = np.zeros(n, np.uint64)
+    old = rng.random(n) < 0.01
+    scores[old] = rng.integers(1, 64, int(old.sum()))
+    state.inactivity_scores = scores
+    state.slashings[epoch % P.epochs_per_slashings_vector] = np.uint64(slashed.size * max_eff)
+
+
+def registry_state_digest(state) -> str:
+    """Hex digest of every column an epoch transition mutates (the JAX
+    package's ``registry_state_digest``, ``lighthouse_tpu/testing.py:431``)."""
+    h = hashlib.sha256()
+    v = state.validators
+    for arr in (state.balances, v.effective_balance, state.inactivity_scores,
+                v.activation_eligibility_epoch, v.activation_epoch, v.exit_epoch,
+                v.withdrawable_epoch, v.slashed, state.previous_epoch_participation,
+                state.current_epoch_participation, state.slashings):
+        h.update(np.ascontiguousarray(arr).tobytes())
+    h.update(int(state.finalized_checkpoint.epoch).to_bytes(8, "little"))
+    h.update(int(state.current_justified_checkpoint.epoch).to_bytes(8, "little"))
+    return h.hexdigest()
 
 
 def slot_diff(state, spec, rng: np.random.Generator) -> None:

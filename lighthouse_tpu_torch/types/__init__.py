@@ -2,6 +2,8 @@
 
 from lighthouse_tpu_torch.types.spec import (
     FAR_FUTURE_EPOCH,
+    FORKS,
+    GENESIS_EPOCH,
     MAINNET_PRESET,
     MINIMAL_PRESET,
     PRESETS,
@@ -28,7 +30,7 @@ from lighthouse_tpu_torch.types.containers import (
 )
 
 __all__ = [
-    "FAR_FUTURE_EPOCH", "MAINNET_PRESET", "MINIMAL_PRESET", "PRESETS",
+    "FAR_FUTURE_EPOCH", "FORKS", "GENESIS_EPOCH", "MAINNET_PRESET", "MINIMAL_PRESET", "PRESETS",
     "ChainSpec", "Preset", "RootsList", "RootsVector", "U8List", "U64List",
     "U64Vector", "ValidatorRegistryType", "Validators", "BeaconBlockHeader",
     "Checkpoint", "Eth1Data", "Fork", "HistoricalSummary", "Validator",

@@ -15,6 +15,7 @@ import torch
 from lighthouse_tpu_torch.device import resolve_device
 from lighthouse_tpu_torch.ops import sha256 as sha_ops
 from lighthouse_tpu_torch.ssz.core import SSZType, _batch_merkleize_subtrees
+from lighthouse_tpu_torch.types.spec import FAR_FUTURE_EPOCH
 
 
 def _words(chunks: np.ndarray) -> np.ndarray:
@@ -309,6 +310,16 @@ class Validators:
     def __eq__(self, other) -> bool:
         return isinstance(other, Validators) and all(
             np.array_equal(getattr(self, f), getattr(other, f)) for f in self._COLUMNS)
+
+    def is_active(self, epoch: int) -> np.ndarray:
+        """bool[n]: the spec's ``is_active_validator`` at ``epoch``, per row."""
+        e = np.uint64(epoch)
+        return (self.activation_epoch <= e) & (e < self.exit_epoch)
+
+    def is_eligible_for_activation_queue(self, max_effective_balance: int) -> np.ndarray:
+        """bool[n]: not yet queued and at the maximum effective balance."""
+        return ((self.activation_eligibility_epoch == np.uint64(FAR_FUTURE_EPOCH))
+                & (self.effective_balance == np.uint64(max_effective_balance)))
 
 
 def _column_property(col: str) -> property:

@@ -19,7 +19,8 @@ from lighthouse_tpu.ops import sha256 as jsha
 from lighthouse_tpu_torch.ops import sha256 as tsha
 
 CPU = torch.device("cpu")
-CSRC = Path(tsha.__file__).resolve().parent.parent / "csrc" / "sha256.cu"
+# the kernels' constant tables live in the header their compression shares
+CSRC = Path(tsha.__file__).resolve().parent.parent / "csrc" / "sha256.cuh"
 
 
 @pytest.fixture(autouse=True)
