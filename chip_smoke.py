@@ -9,9 +9,9 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a),
 Phases, each of which fails the run (non-zero exit) on any mismatch:
 
 1. Build every kernel source at once (nvcc for ``csrc/sha256.cu``,
-   ``csrc/bls12_381.cu`` and ``csrc/epoch.cu``, g++ for the host
-   ``csrc/bls_host.cc``) and print the SHA-256 build's ``-Xptxas -v``
-   report.
+   ``csrc/bls12_381.cu``, ``csrc/epoch.cu`` and ``csrc/kzg.cu``, g++ for
+   the host ``csrc/bls_host.cc``) and print the SHA-256 build's
+   ``-Xptxas -v`` report.
 2. Each SHA-256 kernel against its plain PyTorch version on the card, at
    the shapes of a 2^20-validator state root, bit for bit (tolerance 0:
    SHA-256 is integer arithmetic); the pair hash also against hashlib.
@@ -58,6 +58,22 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    digest, post-state root and shuffle, and each cached slot root must
    equal the uncached one; then ``epoch_ms``, ``shuffle_device_ms`` and
    one traced and one cProfiled boundary slot.
+10. The KZG kernels against their plain PyTorch versions on the card,
+    tolerance 0 (integer arithmetic), at the shapes of the 768-blob batch
+    of width 4096: raw to Montgomery and the barycentric evaluation over
+    [768, 4096] (one challenge on the domain), the G1 fold over 4096 lanes
+    in one segment and interleaved in two, the fused check over its 4096
+    lanes, and the Miller product of 2 pairs padded to 4 lanes.
+11. The KZG main path (BASELINE config 5, as the JAX package's
+    ``bench.py`` builds it): ``KzgSettings.dev(4096)``, the 6 unique blobs'
+    commitments and proofs (checked against p(τ), q(τ) and the host
+    lincomb), the 768-blob ``verify_blob_kzg_proof_batch`` cold then warm
+    (p50 of 5; ``kzg_blobs_per_s``, ``kzg_batch_s``, ``kzg_cold_s``,
+    ``kzg_n_blobs``, a stage split), the evaluations of the unique blobs
+    against the host oracle, the tampered and edge-case batches of
+    ``testing.kzg_cell``, a Deneb block's 6 blobs on the unfused path
+    (p50 ms), and one traced and one cProfiled warm batch.  Launch counts
+    are read over this phase alone.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; the one before that the kernel table.
@@ -102,6 +118,7 @@ def smi(query: str) -> str:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -131,12 +148,13 @@ def main() -> int:
         build(name)
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         jobs = {name: pool.submit(timed_build, build, name) for build, name in (
             (native.build_cuda_lib, "sha256"), (native.build_cuda_lib, "bls12_381"),
-            (native.build_cuda_lib, "epoch"), (native.build_host_lib, "bls_host"))}
+            (native.build_cuda_lib, "epoch"), (native.build_cuda_lib, "kzg"),
+            (native.build_host_lib, "bls_host"))}
         build_s = {name: job.result() for name, job in jobs.items()}
-    log(f"build sha256.cu {build_s['sha256']:.3f} s (all four sources built at once)")
+    log(f"build sha256.cu {build_s['sha256']:.3f} s (all five sources built at once)")
     for line in native.build_log("sha256").splitlines():
         if "ptxas" in line:
             log(f"  {line.strip()}")
@@ -311,6 +329,8 @@ def main() -> int:
     del state, replay
     bls_phases(torch, np, native, dev, table, build_s, max_mhz)
     epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s)
+    kzg_phases(torch, np, native, dev, table, build_s, max_mhz)
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from start to the kernel table")
 
     print(json.dumps({"kernels": list(table.values())}))
     print(card)
@@ -825,6 +845,266 @@ def boundary_path(torch, np, dev, state, spec, fill: str) -> dict:
     log(f"{fill} fill, host profile of one boundary slot, top 5 by own time (ms): "
         f"{host_top5(lambda: per_slot_processing(profiled[2], spec))}")
     return launches
+
+
+KZG_SEED = 11                    # bench.py's default_rng(11)
+KZG_WIDTH = 4096
+KZG_UNIQUE = 6
+KZG_BLOCKS = 128
+KZG_BLOCK_BLOBS = 6              # a Deneb block's most blobs
+
+
+def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> None:
+    """Phases 10-11: Deneb blob KZG verification."""
+    from lighthouse_tpu_torch import testing as T
+    from lighthouse_tpu_torch.crypto import kzg
+    from lighthouse_tpu_torch.crypto.bls import curve as cv
+    from lighthouse_tpu_torch.ops import bigint as bi
+    from lighthouse_tpu_torch.ops import bls12_381 as t12
+    from lighthouse_tpu_torch.ops import bls_cuda, fr, msm
+
+    # -- 10. KZG kernels against their plain versions ------------------------
+    t_phase = time.perf_counter()
+    log(f"build kzg.cu {build_s['kzg']:.3f} s (built in parallel in phase 1)")
+    for name in ("kzg", "bls12_381"):
+        entry = None
+        for line in native.build_log(name).splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "Used" in line and entry and any(k in entry for k in (
+                    "k_fr_", "k_g1_scalar_mul")):
+                log(f"  {entry.split('_cu_')[-1][8:40]}: {line.split(':', 1)[1].strip()}")
+                entry = None
+    props = torch.cuda.get_device_properties(0)
+    imad_per_s = props.multi_processor_count * IMAD_LANES_PER_SM * max_mhz * 1e6
+
+    def cuda_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def bound(imads: int, nbytes: int) -> tuple[float, str]:
+        ops_ms = imads / imad_per_s * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+    R = fr.R_INT
+    rng = np.random.default_rng(KZG_SEED)
+    n, w = KZG_UNIQUE * KZG_BLOCKS, KZG_WIDTH
+    raw = rng.integers(0, 256, (n, w, 32), dtype=np.uint8)
+    raw[..., 0] &= 0x3F                                     # canonical: below 2^254
+    roots = kzg._bit_reversal_permutation(kzg._compute_roots_of_unity(w))
+    zs = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(n)]
+    zs[5] = roots[77 % w]                                     # a challenge on the domain
+    raw_t = torch.from_numpy(raw).to(dev)
+    f_m = fr.fr_to_mont_device(raw_t)
+    z_t = bi.to_tensor(fr.to_mont_host(zs), dev)
+    roots_t = bi.to_tensor(fr.to_mont_host(roots), dev)
+    invw_t = bi.to_tensor(fr.to_mont_host([pow(w, -1, R)]), dev)
+    # the fold's lanes: a blob's MSM (W) and the fused check's 2·bucket(2n + 1),
+    # both 4096 at the cell; distinct points P_i = (i + 2)·G, 255-bit
+    # scalars, two of them zero
+    lanes = max(w, 2 * msm.bucket(2 * n + 1))
+    g = cv.g1_generator()
+    pts, p = [], cv.g1_mul(g, 2)
+    for _ in range(lanes):
+        pts.append(p)
+        p = cv.g1_add(p, g)
+    ks = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(lanes)]
+    ks[9] = ks[-7] = 0
+    xs, ys, digits = msm._fold_lanes(pts, ks, lanes, dev)
+    digits_np = digits.cpu().numpy()
+    settings16 = kzg.KzgSettings.dev(16, device="cpu")
+    xq, yq = settings16.g2_rows(dev)
+    pair_pts = [(cv.g1_mul(g, 5), cv.g2_generator()),
+                (cv.g1_neg(g), cv.g2_mul(cv.g2_generator(), 5))]
+    mp = t12.points_to_device(pair_pts + [(cv.INF, cv.g2_generator())] * 2)
+    mr_args = tuple(bi.to_tensor(c, dev) for c in mp[:4]) + (torch.from_numpy(mp[4]).to(dev),)
+    fused_live = (msm.fold_device(xs, ys, digits, 2)[2] != 0).any(-1).cpu().numpy()
+    fp, frm = bls_cuda.IMADS_PER_FP_MUL, fr.IMADS_PER_FR_MUL
+    cases = [
+        # key, label, kernel, plain, args, multiply-adds, bytes, source, replaces, reps
+        ("fr_to_mont", f"fr_to_mont [{n} x {w}]", fr.fr_to_mont_device, fr.fr_to_mont_plain,
+         (raw_t,), n * w * frm, n * w * 64, "lighthouse_tpu_torch/csrc/kzg.cu",
+         "lighthouse_tpu/ops/fr.py:332", 10),
+        ("fr_eval", f"fr_eval [{n} x {w}, one challenge on the domain]", fr.eval_device,
+         fr.eval_plain, (f_m, z_t, roots_t, invw_t), fr.eval_fr_muls(n, w) * frm,
+         n * w * 32 + w * 32 + 32 + n * 64, "lighthouse_tpu_torch/csrc/kzg.cu",
+         "lighthouse_tpu/ops/fr.py:297", 10),
+        ("g1_fold", f"g1_fold [{lanes} lanes, 1 segment]", msm.fold_device, msm.fold_plain,
+         (xs, ys, digits, 1), bls_cuda.g1_fold_fp_muls(digits_np, 1) * fp,
+         lanes * (96 + 256) + 144, "lighthouse_tpu_torch/csrc/bls12_381.cu",
+         "lighthouse_tpu/ops/msm.py:115", 3),
+        ("g1_fold@2", f"g1_fold [{lanes} lanes, 2 interleaved segments]", msm.fold_device,
+         msm.fold_plain, (xs, ys, digits, 2), bls_cuda.g1_fold_fp_muls(digits_np, 2) * fp,
+         lanes * (96 + 256) + 288, "", "", 3),
+        ("kzg_fused", f"kzg_fused [{lanes} lanes, 2 Miller lanes]", kzg.kzg_fused_device,
+         kzg.kzg_fused_plain, (xs, ys, digits, xq, yq),
+         (bls_cuda.g1_fold_fp_muls(digits_np, 2) + bls_cuda.miller_reduce_fp_muls(fused_live)) * fp,
+         lanes * (96 + 256) + 2 * 192 + 576, "lighthouse_tpu_torch/csrc/bls12_381.cu",
+         "lighthouse_tpu/crypto/kzg.py:437", 3),
+        ("miller_reduce", "miller_reduce [2 pairs, 4 lanes]", t12.miller_reduce_device,
+         t12.miller_reduce_plain, mr_args, bls_cuda.miller_reduce_fp_muls(mp[4]) * fp,
+         4 * (96 + 192 + 1) + 576, "lighthouse_tpu_torch/csrc/bls12_381.cu",
+         "lighthouse_tpu/ops/bls12_381.py:779", 5),
+    ]
+    for key, label, kernel, plain, kargs, imads, nbytes, source, replaces, reps in cases:
+        got = kernel(*kargs)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(*kargs)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        if [g_.shape for g_ in got] != [w_.shape for w_ in want]:
+            raise SystemExit(f"{label}: shapes {[list(g_.shape) for g_ in got]} != "
+                             f"{[list(w_.shape) for w_ in want]}")
+        err = max(int((bi.u64(g_) - bi.u64(w_)).abs().max()) for g_, w_ in zip(got, want))
+        if err != 0:
+            raise SystemExit(f"{label}: kernel disagrees with its plain version (max err {err})")
+        del got, want
+        ms = cuda_ms(lambda: kernel(*kargs), reps)
+        bound_ms, bound_by = bound(imads, nbytes)
+        log(f"kernel {label}: == plain (max err {err}); {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {imads} multiply-adds, {nbytes} bytes)")
+        if source:
+            table[key] = dict(name=key, route="cuda", source=source, replaces=replaces,
+                              launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    ys_dev = fr.from_mont_host(bi.to_numpy(fr.eval_device(f_m, z_t, roots_t, invw_t)[:8]))
+    host_settings = kzg.KzgSettings(w, [], None, roots)
+    for i in (0, 6, 7):
+        poly = [int.from_bytes(raw[i, j].tobytes(), "big") for j in range(w)]
+        if int(ys_dev[i]) != kzg.evaluate_polynomial_in_evaluation_form(poly, zs[i], host_settings):
+            raise SystemExit(f"fr_eval: blob {i} disagrees with the host evaluation")
+    log("fr_eval == the host barycentric evaluation on blobs 0, 6, 7")
+    del raw_t, f_m, z_t, cases
+    torch.cuda.empty_cache()
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
+    # -- 11. the KZG main path -------------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kzg.reset_launches()
+    t0 = time.perf_counter()
+    settings = kzg.KzgSettings.dev(w, device=dev)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cell = T.kzg_cell(w, KZG_UNIQUE, KZG_BLOCKS, KZG_SEED, settings=settings, device=dev)
+    cell_s = time.perf_counter() - t0
+    uniq, cs, proofs = cell["unique"]
+    blobs, commits, prfs = cell["blobs"], cell["commitments"], cell["proofs"]
+    log(f"KzgSettings.dev({w}) {setup_s:.2f} s; the cell's {KZG_UNIQUE} commitments and proofs, "
+        f"its variants and {n} challenges {cell_s:.2f} s")
+
+    def verify(bl, cm, pr, **kw):
+        t = time.perf_counter()
+        ok = kzg.verify_blob_kzg_proof_batch(bl, cm, pr, settings, dev, **kw)
+        return ok, time.perf_counter() - t
+
+    probe: dict = {}
+    t0 = time.perf_counter()
+    cold_ok = kzg._verify_batch(blobs, commits, prfs, settings, dev, probe=probe)
+    cold_s = time.perf_counter() - t0
+    runs = [verify(blobs, commits, prfs) for _ in range(TIMED_RUNS)]
+    verdicts = {v["name"]: kzg._verify_batch(v["blobs"], v["commitments"], v["proofs"], settings,
+                                             dev, zs=v["challenges"]) for v in cell["variants"]}
+    bb = slice(0, KZG_BLOCK_BLOBS)
+    block_runs = [verify(blobs[bb], commits[bb], prfs[bb]) for _ in range(TIMED_RUNS)]
+    bad_block = list(prfs[bb])
+    bad_block[0], bad_block[1] = bad_block[1], bad_block[0]
+    block_bad = verify(blobs[bb], commits[bb], bad_block)[0]
+    single = kzg.verify_blob_kzg_proof(uniq[0], cs[0], proofs[0], settings, dev)
+    launches = {k.__name__: k.launches for k in kzg.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    if not cold_ok or not all(ok for ok, _ in runs + block_runs) or not single:
+        raise SystemExit(f"a valid KZG batch failed: cold {cold_ok}, runs {runs}, "
+                         f"block {block_runs}, single proof {single}")
+    wrong = {k: v for k, v in verdicts.items()
+             if v != next(x["valid"] for x in cell["variants"] if x["name"] == k)}
+    if wrong or block_bad:
+        raise SystemExit(f"KZG variants gave wrong verdicts: {wrong}; tampered block {block_bad}")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise SystemExit(f"KZG kernels never launched on the main path: {idle}")
+    for key, name in (("fr_to_mont", "fr_to_mont_device"), ("fr_eval", "eval_device"),
+                      ("g1_fold", "fold_device"), ("kzg_fused", "kzg_fused_device"),
+                      ("miller_reduce", "miller_reduce_device")):
+        table[key]["launches"] = launches[name]
+    p50 = statistics.median(s_ for _, s_ in runs)
+    block_p50_ms = statistics.median(s_ for _, s_ in block_runs) * 1e3
+    log(f"main path: {n}-blob batch cold {cold_s:.3f} s, runs {[round(s_, 3) for _, s_ in runs]} s; "
+        f"block of {KZG_BLOCK_BLOBS} runs {[round(s_ * 1e3, 1) for _, s_ in block_runs]} ms; "
+        f"variants {verdicts}; tampered block False; single proof True")
+    log(f"launches over the main path: {launches}; max_memory_allocated {peak} bytes")
+
+    # checks after the counted run
+    tau = 0x123456789ABCDEF
+    g1 = cv.g1_generator()
+    for blob, c, pf in zip(uniq, cs, proofs):
+        poly = kzg.blob_to_polynomial(blob, settings)
+        p_tau = kzg.evaluate_polynomial_in_evaluation_form(poly, tau, settings)
+        z = kzg.compute_challenge(blob, c, settings)
+        y = kzg.evaluate_polynomial_in_evaluation_form(poly, z, settings)
+        q_tau = (p_tau - y) * pow(tau - z, -1, R) % R
+        want = msm.host_lincomb_groups([g1, g1], [p_tau, q_tau], [0, 1], 2)
+        if [c, pf] != [cv.g1_to_bytes(x) for x in want]:
+            raise SystemExit("a commitment or proof differs from [p(tau)]G1 / [q(tau)]G1")
+    lincomb = msm.host_lincomb_groups(settings.g1_lagrange_brp,
+                                      kzg.blob_to_polynomial(uniq[0], settings), None, 1)[0]
+    if cv.g1_to_bytes(lincomb) != cs[0]:
+        raise SystemExit("commitment 0 differs from the host lincomb")
+    host_ys = [kzg.evaluate_polynomial_in_evaluation_form(kzg.blob_to_polynomial(b, settings),
+                                                          kzg.compute_challenge(b, c, settings),
+                                                          settings) for b, c in zip(uniq, cs)]
+    if probe["ys"][:KZG_UNIQUE] != host_ys or probe["ys"][KZG_UNIQUE:2 * KZG_UNIQUE] != host_ys:
+        raise SystemExit("the batch's evaluations differ from the host oracle")
+    log(f"{KZG_UNIQUE} commitments and proofs == [p(tau)]G1 and [q(tau)]G1 (commitment 0 also "
+        f"== the host lincomb); the batch's evaluations of the unique blobs == the host oracle")
+
+    ledger: dict = {}
+    verify(blobs, commits, prfs, ledger=ledger)
+    block_ledger: dict = {}
+    verify(blobs[bb], commits[bb], prfs[bb], ledger=block_ledger)
+    log(json.dumps({"kzg_blobs_per_s": n / p50, "kzg_batch_s": p50, "kzg_cold_s": cold_s,
+                    "kzg_n_blobs": n, "kzg_block_p50_ms": block_p50_ms,
+                    "kzg_setup_s": setup_s,
+                    "stages_ms": {k: v * 1e3 for k, v in ledger.items()},
+                    "block_stages_ms": {k: v * 1e3 for k, v in block_ledger.items()}}))
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "kzg.json")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p_: p_.export_chrome_trace(trace_path)) as prof:
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                kzg.verify_blob_kzg_proof_batch(blobs, commits, prfs, settings, dev)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        busy, spans, device_us = device_busy(trace_path)
+    lost = [k for k in ("k_fr_to_mont", "k_fr_eval", "k_g1_scalar_mul", "k_g1_add_halves",
+                        "k_miller", "k_fq12_mul_halves")
+            if not any(name.startswith(k) for name in device_us)]
+    log(f"profiled {n}-blob batch: wall {wall_ms:.1f} ms, device busy {busy:.3f} ms "
+        f"({100 * (1 - busy / wall_ms):.1f}% idle; {spans} device spans); device time by name "
+        f"(us) {[(k, round(v, 1)) for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])][:8]}")
+    if lost:
+        raise SystemExit(f"the traced {n}-blob batch lacks kernels the run launched: {lost}")
+    log(f"host profile of one {n}-blob batch, top 5 by own time (ms): "
+        f"{host_top5(lambda: kzg.verify_blob_kzg_proof_batch(blobs, commits, prfs, settings, dev))}")
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

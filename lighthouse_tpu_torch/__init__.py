@@ -9,7 +9,10 @@ Ported so far: the SHA-256 merkleization path of the per-slot state root
 ``state_transition.slot_processing``) for Deneb states, and BLS12-381 batch
 signature verification (``crypto.bls.verify_signature_sets(sets,
 backend="cuda")`` over ``ops.bls_backend``, ``ops.msm``, ``ops.ec``,
-``ops.bls12_381``, ``ops.bigint`` and ``ops.dispatch_pipeline``).
+``ops.bls12_381``, ``ops.bigint`` and ``ops.dispatch_pipeline``), the
+Deneb epoch boundary (``state_transition.epoch_processing``) and Deneb blob
+KZG verification (``crypto.kzg`` over ``ops.fr``, ``ops.msm`` and
+``ops.bls12_381``).
 """
 
 __version__ = "0.1.0"

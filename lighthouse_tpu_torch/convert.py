@@ -1,5 +1,5 @@
-"""Carry serialized inputs into the port: beacon states and BLS signature
-sets."""
+"""Carry serialized inputs into the port: beacon states, BLS signature sets
+and KZG trusted setups."""
 
 from __future__ import annotations
 
@@ -27,3 +27,20 @@ def signature_sets_from_bytes(items):
     return [api.SignatureSet(api.Signature(bytes(sig)), [api.PublicKey(bytes(pk)) for pk in pks],
                              bytes(msg))
             for pks, sig, msg in items]
+
+
+def kzg_settings_from_points(settings):
+    """The port's ``KzgSettings`` from another package's setup object (for
+    example the JAX package's ``KzgSettings``): its affine G1 int pairs and
+    its G2 points, whose Fq2 coordinates carry ``.a`` and ``.b`` ints."""
+    from lighthouse_tpu_torch.crypto.bls.fields import Fq2
+    from lighthouse_tpu_torch.crypto.kzg import KzgSettings
+
+    def g1(p):
+        return None if p is None else (int(p[0]), int(p[1]))
+
+    def g2(q):
+        return None if q is None else (Fq2(int(q[0].a), int(q[0].b)), Fq2(int(q[1].a), int(q[1].b)))
+
+    return KzgSettings(int(settings.width), [g1(p) for p in settings.g1_lagrange_brp],
+                       g2(settings.g2_tau), [int(w) for w in settings.roots_brp])

@@ -1,1 +1,2 @@
-"""Cryptography of the port: BLS12-381 (``crypto.bls``)."""
+"""Cryptography of the port: BLS12-381 (``crypto.bls``) and KZG blob
+commitments (``crypto.kzg``)."""

@@ -10,6 +10,14 @@
 //   lh_g1_add_halves + lh_blinded_final
 //                       -> ops/msm.py:143 _blinded_fold
 //   lh_fq12_mul         -> ops/dispatch_pipeline.py:162 _fq12_mul_pair
+//   lh_g1_scalar_mul + lh_g1_add_halves
+//                       -> ops/msm.py:115 _fold_kernel (wrapper msm.fold_device)
+//   lh_miller + lh_fq12_mul_halves
+//                       -> ops/bls12_381.py:779 _miller_reduce_jit (wrapper
+//                          bls12_381.miller_reduce_device)
+//   lh_g1_scalar_mul + lh_g1_add_halves + lh_miller + lh_fq12_mul_halves
+//                       -> crypto/kzg.py:437 _kzg_fused (wrapper
+//                          kzg.kzg_fused_device)
 //
 // Bound: 32-bit integer multiply-adds.  Every Fp product is a 12-word CIOS
 // Montgomery multiply (2*12^2 + 12 multiply-adds); the data moved is a few
@@ -41,6 +49,12 @@ __global__ void k_gj_scalar_mul(long n, int n_digits, const u32* pkx, const u32*
                                 u32* PY, u32* PZ, u32* SX, u32* SY, u32* SZ) {
     long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i < n) lane_gj_scalar_mul(i, n, n_digits, pkx, pky, sx, sy, digits, PX, PY, PZ, SX, SY, SZ);
+}
+
+__global__ void k_g1_scalar_mul(long n, int n_digits, const u32* xs, const u32* ys,
+                                const int32_t* digits, u32* X, u32* Y, u32* Z) {
+    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) lane_g1_scalar_mul(i, n, n_digits, xs, ys, digits, X, Y, Z);
 }
 
 __global__ void k_g1_add_halves(long half, u32* X, u32* Y, u32* Z) {
@@ -93,6 +107,15 @@ int lh_gj_scalar_mul(const u32* pkx, const u32* pky, const u32* sx, const u32* s
                      u32* SZ, long long n, long long n_digits, void* stream) {
     k_gj_scalar_mul<<<blocks(n), kBlock, 0, S(stream)>>>(n, (int)n_digits, pkx, pky, sx, sy,
                                                          digits, PX, PY, PZ, SX, SY, SZ);
+    return (int)cudaGetLastError();
+}
+
+// G1 lanes xs, ys [n, 12] affine, digits [n_digits, n] -> X, Y, Z [n, 12];
+// 32-thread blocks, so that a few thousand lanes reach every SM
+int lh_g1_scalar_mul(const u32* xs, const u32* ys, const int32_t* digits, u32* X, u32* Y, u32* Z,
+                     long long n, long long n_digits, void* stream) {
+    k_g1_scalar_mul<<<(unsigned)((n + 31) / 32), 32, 0, S(stream)>>>(n, (int)n_digits, xs, ys,
+                                                                     digits, X, Y, Z);
     return (int)cudaGetLastError();
 }
 

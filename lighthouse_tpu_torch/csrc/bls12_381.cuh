@@ -621,6 +621,39 @@ __device__ __forceinline__ void lane_gj_scalar_mul(long i, long n, int n_digits,
     st(SX, SY, SZ, i, a2);
 }
 
+// r*P for G1 lane i over MSB-first 4-bit digits [n_digits, n] (the G1 half
+// of lane_gj_scalar_mul; ec.g1_scalar_mul_windowed): a zero scalar gives
+// exact zeros and no work, and the accumulator is not doubled while it is
+// infinity
+__device__ __forceinline__ void lane_g1_scalar_mul(long i, long n, int n_digits, const u32* xs,
+                                                   const u32* ys, const int32_t* digits, u32* X,
+                                                   u32* Y, u32* Z) {
+    Jac<Fp> a1;
+    jac_zero(a1);
+    int any = 0;
+    for (int d = 0; d < n_digits; d++) any |= digits[(long)d * n + i] & 15;
+    if (!any) {
+        st(X, Y, Z, i, a1);
+        return;
+    }
+    Jac<Fp> tab1[16];
+    Fp x1, y1;
+    ld(x1, xs, i);
+    ld(y1, ys, i);
+    window_table(tab1, x1, y1);
+    bool inf = true;
+#pragma unroll 1
+    for (int d = 0; d < n_digits; d++) {
+        int digit = digits[(long)d * n + i] & 15;
+#pragma unroll 1
+        for (int k = 0; k < 4 && !inf; k++) jac_double(a1, a1);
+        bool pick_inf = digit == 0;
+        jac_add_full(a1, a1, tab1[digit], inf, pick_inf);
+        inf = inf && pick_inf;
+    }
+    st(X, Y, Z, i, a1);
+}
+
 // rows i and i + half of a G1 (or G2) lane array -> row i (one tree level)
 template <class F> __device__ __forceinline__ void lane_add_halves(long i, long half, u32* X,
                                                                    u32* Y, u32* Z) {

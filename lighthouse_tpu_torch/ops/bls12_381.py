@@ -21,6 +21,11 @@ scalings (``batch_miller_loop``).  Those are written here step for step as
 ``lighthouse_tpu/ops/bls12_381.py:348-556`` writes them, so that the
 Miller values equal the JAX package's exactly, not only after the final
 exponentiation.
+
+``miller_reduce_device`` is the kernel wrapper of ``_miller_reduce_jit``
+(``lh_miller`` with Zp = Zq = 1, then one ``lh_fq12_mul_halves`` launch per
+tree level; ``csrc/bls12_381.cu``), under ``multi_pairing_device``.  Bound:
+Fp products (``bls_cuda.miller_reduce_fp_muls``).
 """
 
 from __future__ import annotations
@@ -267,10 +272,9 @@ def batch_miller_loop_plain(xp, yp, zp, xq, yq, zq, bits=X_BITS) -> torch.Tensor
 
         q2 = MulQueue()
         xb = fp2_add(X, yy)
-        r = [q2(xx, X), q2(xx, zz), q2(yz, zz), q2(yy, yy), q2(xb, xb), q2(E, E),
-             q2(Z3, Z3), q2(Z3, zq)]
+        r = [q2(xx, X), q2(xx, zz), q2(yz, zz), q2(yy, yy), q2(xb, xb), q2(E, E)]
         q2.run()
-        xxx, xxzz, yzzz, c4, t, ff, zz2, z3zq = (q2[i] for i in r)
+        xxx, xxzz, yzzz, c4, t, ff = (q2[i] for i in r)
         D = fp2_scale(fp2_sub(fp2_sub(t, xx), c4), 2)
         X3 = fp2_sub(ff, fp2_scale(D, 2))
         a0 = fp2_sub(fp2_scale(xxx, 3), fp2_scale(yy, 2))
@@ -278,15 +282,29 @@ def batch_miller_loop_plain(xp, yp, zp, xq, yq, zq, bits=X_BITS) -> torch.Tensor
         s_b1 = fp2_scale(yzzz, 2)
 
         q3 = MulQueue()
-        r = [q3(E, fp2_sub(D, X3)), q3(s_a1, xz_2), q3(s_b1, yp_2), q3(a0, zp3_2),
-             q3(Z3, zz2), q3(xq, zz2), q3(X3, zq2)]
+        r = [q3(E, fp2_sub(D, X3)), q3(s_a1, xz_2), q3(s_b1, yp_2), q3(a0, zp3_2)]
         q3.run()
-        ey, a1p, b1, a0s, zzz, xqzz2, u1 = (q3[i] for i in r)
+        ey, a1p, b1, a0s = (q3[i] for i in r)
         Y3 = fp2_sub(ey, fp2_scale(c4, 8))
         a1 = fp2_neg(a1p)
-        H = fp2_sub(xqzz2, u1)
 
         f_dbl = fp12_sparse_mul(fsq, a0s, a1, b1)
+        if not bit:
+            # the add step's values would be discarded: skip them (the
+            # kernel's Miller loop skips them too)
+            f, X, Y, Z = f_dbl, X3, Y3, Z3
+            continue
+
+        q = MulQueue()
+        r = [q(Z3, Z3), q(Z3, zq), q(X3, zq2)]
+        q.run()
+        zz2, z3zq, u1 = (q[i] for i in r)
+        q = MulQueue()
+        r = [q(Z3, zz2), q(xq, zz2)]
+        q.run()
+        zzz, xqzz2 = (q[i] for i in r)
+        H = fp2_sub(xqzz2, u1)
+
         q4 = MulQueue()
         r = [q4(yq, zzz), q4(fp2_neg(H), Z3), q4(Y3, zq3), q4(z3zq, H)]
         q4.run()
@@ -315,11 +333,7 @@ def batch_miller_loop_plain(xp, yp, zp, xq, yq, zq, bits=X_BITS) -> torch.Tensor
         rv, yj = (q7[i] for i in r)
         Y3a = fp2_sub(rv, fp2_scale(yj, 2))
         Z3a = fp2_scale(z3ah, 2)
-
-        if bit:
-            f, X, Y, Z = f_add, X3a, Y3a, Z3a
-        else:
-            f, X, Y, Z = f_dbl, X3, Y3, Z3
+        f, X, Y, Z = f_add, X3a, Y3a, Z3a
     return fp12_conj(f)
 
 
@@ -354,3 +368,96 @@ def fq12_from_words(words) -> Fq12:
         return Fq6(Fq2(v[k], v[k + 1]), Fq2(v[k + 2], v[k + 3]), Fq2(v[k + 4], v[k + 5]))
 
     return Fq12(fq6(0), fq6(6))
+
+
+# --------------------------------------------------------------------------
+# row 10: Miller loops over affine pairs and their masked product
+# --------------------------------------------------------------------------
+
+def points_to_device(pairs):
+    """[(G1 affine ints, G2 affine Fq2)] -> (xp, yp uint32 [n, 12], xq, yq
+    uint32 [n, 2, 12] Montgomery words, mask bool [n]).  A pair with an
+    infinity side is replaced by the generators and masked out: its Miller
+    value is one (``bls12_381.points_to_device`` of the JAX package)."""
+    from lighthouse_tpu_torch.crypto.bls import curve as cv
+
+    n = len(pairs)
+    mask = np.ones(n, bool)
+    ps, qs = [], []
+    for i, (p, q) in enumerate(pairs):
+        if p is cv.INF or q is cv.INF:
+            mask[i] = False
+            p, q = cv.g1_generator(), cv.g2_generator()
+        ps.append(p)
+        qs.append(q)
+    xp = bi.ints_to_mont_limbs([p[0] for p in ps])
+    yp = bi.ints_to_mont_limbs([p[1] for p in ps])
+    q = bi.ints_to_mont_limbs([c for p in qs for c in (p[0].a, p[0].b, p[1].a, p[1].b)])
+    q = q.reshape(n, 2, 2, bi.L)
+    return xp, yp, np.ascontiguousarray(q[:, 0]), np.ascontiguousarray(q[:, 1]), mask
+
+
+def miller_reduce_plain(xp, yp, xq, yq, mask) -> torch.Tensor:
+    """Plain version of ``miller_reduce_device`` (int32 words in, Fq12 row
+    [1, 12, 12] out)."""
+    xp, yp, xq, yq = (bi.u64(t) for t in (xp, yp, xq, yq))
+    f = batch_miller_loop_plain(xp, yp, bi.one_like(xp), xq, yq, fp2_one_like(xq))
+    return bi.i32(fq12_flat(reduce_product_plain(f, mask.bool())))
+
+
+def miller_reduce_device(xp, yp, xq, yq, mask) -> torch.Tensor:
+    """Π over lanes of miller(P_i, Q_i), masked lanes one: affine P (int32
+    [n, 12]) and Q (int32 [n, 2, 12]) Montgomery words, mask bool [n], n a
+    power of two -> Fq12 row [1, 12, 12].  One Miller launch (Zp = Zq = 1)
+    and one product launch per tree level.  Replaces
+    ``lighthouse_tpu/ops/bls12_381.py:779`` ``_miller_reduce_jit``."""
+    from lighthouse_tpu_torch.ops import bls_cuda
+
+    for name, t, tail in (("xp", xp, (bi.L,)), ("yp", yp, (bi.L,)),
+                          ("xq", xq, (2, bi.L)), ("yq", yq, (2, bi.L))):
+        bls_cuda.check(t, tail, f"miller_reduce {name}")
+    dev = bls_cuda.same_device("miller_reduce", xp, yp, xq, yq, mask)
+    n = xp.shape[0]
+    if n & (n - 1) or mask.shape != (n,) or any(t.shape[0] != n for t in (yp, xq, yq)):
+        raise ValueError(f"miller_reduce: {n} lanes (a power of two) and mask "
+                         f"{list(mask.shape)} do not agree")
+    if dev.type == "cpu":
+        return miller_reduce_plain(xp, yp, xq, yq, mask)
+    one_p = bi.one_like(xp)
+    one_q = fp2_one_like(xq).contiguous()
+    f = torch.empty((n, 12, bi.L), dtype=torch.int32, device=dev)
+    bls_cuda.launch("lh_miller", xp, yp, one_p, xq, yq, one_q, mask.to(torch.uint8).contiguous(),
+                    f, n, n, -1)
+    launches = 1
+    half = n // 2
+    while half >= 1:
+        bls_cuda.launch("lh_fq12_mul_halves", f, half)
+        launches += 1
+        half //= 2
+    miller_reduce_device.launches += launches
+    return f[:1].clone()
+
+
+miller_reduce_device.launches = 0
+
+
+def multi_pairing_device(pairs, device=None):
+    """Multi-pairing Π e(P_i, Q_i) as a python Fq12 after the final
+    exponentiation (compare with ``.is_one()``): the Miller loops and their
+    product on ``device`` (row 10, lanes padded to a power of two, at least
+    4, the padding masked), the final exponentiation on the host
+    (``csrc/bls_host.cc``)."""
+    from lighthouse_tpu_torch.device import resolve_device
+    from lighthouse_tpu_torch.ops import native_bls
+
+    dev = resolve_device(device)
+    xp, yp, xq, yq, mask = points_to_device(pairs)
+    n = len(pairs)
+    padded = max(4, 1 << max(n - 1, 0).bit_length())
+    if padded != n:
+        xp, yp, xq, yq = (np.concatenate([c, np.repeat(c[-1:], padded - n, 0)])
+                          for c in (xp, yp, xq, yq))
+        mask = np.concatenate([mask, np.zeros(padded - n, bool)])
+    f = miller_reduce_device(*(bi.to_tensor(c, dev) for c in (xp, yp, xq, yq)),
+                             torch.from_numpy(mask).to(dev))
+    return native_bls.final_exp(fq12_from_words(bi.to_numpy(f)))

@@ -1,10 +1,14 @@
 """Loader and launch helpers for the BLS12-381 CUDA kernels
-(``csrc/bls12_381.cu``, field and tower in ``csrc/bls12_381.cuh``).
+(``csrc/bls12_381.cu``, field and tower in ``csrc/bls12_381.cuh``) and the
+Fr kernels of KZG (``csrc/kzg.cu`` over ``csrc/fr.cuh``).
 
-The four kernel wrappers of the batch-verify path live beside their plain
-versions in the modules of their JAX counterparts:
+The kernel wrappers live beside their plain versions in the modules of
+their JAX counterparts: on the batch-verify path
 ``bls_backend.pipeline_device`` and ``bls_backend.g2_subgroup_device``,
-``msm.blinded_fold_device`` and ``dispatch_pipeline.fq12_mul_device``.
+``msm.blinded_fold_device`` and ``dispatch_pipeline.fq12_mul_device``; on
+the KZG path ``fr.fr_to_mont_device``, ``fr.eval_device``,
+``msm.fold_device``, ``bls12_381.miller_reduce_device`` and
+``kzg.kzg_fused_device``.
 Each checks its tensors here, launches on the current CUDA stream, raises
 on a launch error, and counts its CUDA launches on its ``launches``
 attribute.  The library is built by nvcc at first use, never at import.
@@ -20,17 +24,24 @@ import torch
 from lighthouse_tpu_torch.native import build_cuda_lib
 from lighthouse_tpu_torch.ops.bigint import P_INT
 
-# C launchers of csrc/bls12_381.cu: (pointer arguments, integer arguments);
-# each takes the stream last and returns a cudaError_t code
+# C launchers: (pointer arguments, integer arguments) per function of each
+# library; each takes the stream last and returns a cudaError_t code
 _SIGNATURES = {
-    "lh_gj_scalar_mul": (11, 2),
-    "lh_g1_add_halves": (3, 1),
-    "lh_g2_add_halves": (3, 1),
-    "lh_miller": (8, 3),
-    "lh_fq12_mul_halves": (1, 1),
-    "lh_fq12_mul": (3, 1),
-    "lh_g2_subgroup": (3, 1),
-    "lh_blinded_final": (8, 1),
+    "bls12_381": {                            # csrc/bls12_381.cu
+        "lh_gj_scalar_mul": (11, 2),
+        "lh_g1_scalar_mul": (6, 2),
+        "lh_g1_add_halves": (3, 1),
+        "lh_g2_add_halves": (3, 1),
+        "lh_miller": (8, 3),
+        "lh_fq12_mul_halves": (1, 1),
+        "lh_fq12_mul": (3, 1),
+        "lh_g2_subgroup": (3, 1),
+        "lh_blinded_final": (8, 1),
+    },
+    "kzg": {                                  # csrc/kzg.cu
+        "lh_fr_to_mont": (2, 1),
+        "lh_fr_eval": (5, 3),
+    },
 }
 
 # --------------------------------------------------------------------------
@@ -61,18 +72,28 @@ PSI_LANE = (63 * JAC_DOUBLE + _X_ADDS * 11 + 5) * FP2_MUL + 2
 FP_INV = 381 + bin(P_INT - 2).count("1")
 
 
-def scalar_mul_fp_muls(digits: np.ndarray) -> int:
-    """G1 and G2 windowed scalar muls over MSB-first digits [16, n] (the G2
-    products are Fp2): per nonzero lane the two window tables, then four
-    doublings per digit after the first nonzero one and an add per later
-    nonzero digit."""
+def _track_fp_muls(digits: np.ndarray) -> np.ndarray:
+    """Per lane, the field products of one windowed scalar-mul track over
+    MSB-first digits [n_digits, n]: for a nonzero scalar the window table,
+    then four doublings per digit after the first nonzero one and an add per
+    later nonzero digit."""
     nz = np.asarray(digits) != 0
     live = nz.any(axis=0)
     first = np.argmax(nz, axis=0)
     later = np.arange(nz.shape[0])[:, None] > first[None, :]
-    per_track = (WINDOW_TABLE * live + 4 * JAC_DOUBLE * (later & live).sum(axis=0)
-                 + JAC_ADD * (later & nz).sum(axis=0))
-    return int(per_track.sum()) * (1 + FP2_MUL)
+    return (WINDOW_TABLE * live + 4 * JAC_DOUBLE * (later & live).sum(axis=0)
+            + JAC_ADD * (later & nz).sum(axis=0))
+
+
+def scalar_mul_fp_muls(digits: np.ndarray) -> int:
+    """G1 and G2 windowed scalar muls over MSB-first digits [16, n] (the G2
+    products are Fp2)."""
+    return int(_track_fp_muls(digits).sum()) * (1 + FP2_MUL)
+
+
+def g1_scalar_mul_fp_muls(digits: np.ndarray) -> int:
+    """``lh_g1_scalar_mul`` over MSB-first digits [n_digits, n]."""
+    return int(_track_fp_muls(digits).sum())
 
 
 def tree_products(live: np.ndarray, stop: int = 1) -> tuple[int, np.ndarray]:
@@ -113,28 +134,45 @@ def blinded_fold_fp_muls(live: np.ndarray, n_segments: int) -> int:
     return (adds + int(seg_live.sum())) * JAC_ADD + n_segments * (FP_INV + 4)
 
 
-def lib() -> ctypes.CDLL:
-    lib = build_cuda_lib("bls12_381")
-    if lib.lh_error_string.restype is not ctypes.c_char_p:
-        for name, (n_ptr, n_int) in _SIGNATURES.items():
-            fn = getattr(lib, name)
+def g1_fold_fp_muls(digits: np.ndarray, n_segments: int) -> int:
+    """``msm.fold_device``: the G1 scalar muls, then the s-major tree down
+    to ``n_segments`` rows, where only adds of two live rows cost."""
+    live = np.asarray(digits).any(axis=0)
+    return g1_scalar_mul_fp_muls(digits) + tree_products(live, n_segments)[0] * JAC_ADD
+
+
+def miller_reduce_fp_muls(live: np.ndarray) -> int:
+    """Miller lanes whose flag ``live`` is set ([n_out], the padding false),
+    then the product tree over them (a factor of one costs nothing)."""
+    live = np.asarray(live, bool)
+    return int(live.sum()) * MILLER_LANE + tree_products(live)[0] * FP12_MUL
+
+
+def lib(name: str = "bls12_381") -> ctypes.CDLL:
+    """The CUDA library ``csrc/<name>.cu``, built at first use, with its
+    launchers' argument types set."""
+    h = build_cuda_lib(name)
+    if h.lh_error_string.restype is not ctypes.c_char_p:
+        for fn_name, (n_ptr, n_int) in _SIGNATURES[name].items():
+            fn = getattr(h, fn_name)
             fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_longlong] * n_int
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
-        lib.lh_error_string.argtypes = [ctypes.c_int]
-        lib.lh_error_string.restype = ctypes.c_char_p
-    return lib
+        h.lh_error_string.argtypes = [ctypes.c_int]
+        h.lh_error_string.restype = ctypes.c_char_p
+    return h
 
 
-def launch(name: str, *args) -> None:
-    """Call the C launcher ``name`` with tensor pointers and ints, on the
-    current stream of the first tensor's device; raise on a CUDA error."""
+def launch(name: str, *args, library: str = "bls12_381") -> None:
+    """Call the C launcher ``name`` of ``library`` with tensor pointers and
+    ints, on the current stream of the first tensor's device; raise on a
+    CUDA error."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     dev = tensors[0].device
     vals = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        h = lib()
+        h = lib(library)
         rc = getattr(h, name)(*vals, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}: {h.lh_error_string(rc).decode()}")

@@ -153,6 +153,14 @@ def scalar_mul_windowed(F, xb, yb, digits: torch.Tensor):
     return tuple(_select(inf, zero, c, F) for c in acc)
 
 
+def g1_scalar_mul_windowed(xp, yp, digits):
+    """r_i·P_i over affine G1 lanes (Fp [N, 12]) and MSB-first window
+    digits [n_digits, N] of any width (``ec.g1_scalar_mul_windowed``; the
+    KZG MSMs use 64 digits of 256-bit scalars).  Zero scalars give exact
+    zeros."""
+    return scalar_mul_windowed(_G1, xp, yp, digits)
+
+
 def gj_scalar_mul_windowed(xp, yp, xq, yq, digits):
     """r_i·P_i (G1) and r_i·Q_i (G2) over the same window digits
     [16, N] (MSB first): ``ec.gj_scalar_mul_windowed``.  The G1 lanes run

@@ -13,7 +13,8 @@ every stage), or in a live mainnet chain's proportions.
 
 The signature batches are the two of ``BASELINE.json``: the signature sets
 of one mainnet block (``block_signature_sets``) and the 1k-set
-``verify_signature_sets`` microbench (``microbench_sets``).
+``verify_signature_sets`` microbench (``microbench_sets``).  ``kzg_cell``
+builds its blob batch (config 5) with tampered and edge-case variants.
 """
 
 from __future__ import annotations
@@ -430,3 +431,72 @@ def with_identity_aggregate(sets: list, i: int) -> list:
     members = [pk, bls.PublicKey(cv.g1_to_bytes(neg), neg)] * 9
     out[i] = bls.SignatureSet(sets[i].signature, members, sets[i].message)
     return out
+
+
+def kzg_blob(width: int, rng: np.random.Generator) -> bytes:
+    """A blob of ``width`` field elements below 2^62, as the JAX package's
+    ``bench.py`` draws them."""
+    vals = rng.integers(0, 2**62, size=width)
+    return b"".join(int(v).to_bytes(32, "big") for v in vals)
+
+
+def kzg_cell(width: int = 4096, n_unique: int = 6, n_blocks: int = 128, seed: int = 11,
+             settings=None, device=None) -> dict:
+    """The KZG blob batch of the JAX package's benchmark (``bench.py``,
+    BASELINE config 5): ``n_unique`` blobs from ``default_rng(seed)``,
+    repeated over ``n_blocks`` blocks, on ``KzgSettings.dev(width)``, their
+    commitments and proofs made by the port's own entry points on
+    ``device``.  Returns a dict: ``settings``, ``blobs``, ``commitments``,
+    ``proofs`` (the batch), ``unique`` (the first ``n_unique`` of each), and
+    ``variants``, a list of dicts (``name``, ``blobs``, ``commitments``,
+    ``proofs``, ``challenges`` (None, or challenges to force in place of
+    the Fiat-Shamir ones) and ``valid``, the verdict a verifier must give):
+    a swapped proof, a blob with one element changed, another blob's
+    commitment, a non-canonical element (all invalid), a constant blob with
+    its proof at infinity, and a proof at a challenge forced onto a domain
+    point (both valid)."""
+    from lighthouse_tpu_torch.crypto import kzg
+
+    if n_unique < 2:
+        raise ValueError("kzg_cell needs at least 2 unique blobs")
+    if settings is None:
+        settings = kzg.KzgSettings.dev(width, device=device)
+    rng = np.random.default_rng(seed)
+    uniq = [kzg_blob(width, rng) for _ in range(n_unique)]
+    cs = [kzg.blob_to_kzg_commitment(b, settings, device) for b in uniq]
+    proofs = [kzg.compute_blob_kzg_proof(b, c, settings, device) for b, c in zip(uniq, cs)]
+    blobs, commits, prfs = uniq * n_blocks, cs * n_blocks, proofs * n_blocks
+
+    def variant(name, valid, blobs=blobs, commitments=commits, proofs=prfs, challenges=None):
+        return dict(name=name, blobs=list(blobs), commitments=list(commitments),
+                    proofs=list(proofs), challenges=challenges, valid=valid)
+
+    swapped = list(prfs)
+    swapped[0], swapped[1] = prfs[1], prfs[0]
+    k = int(rng.integers(0, width))
+    changed = bytearray(blobs[0])
+    changed[32 * k:32 * k + 32] = ((int.from_bytes(changed[32 * k:32 * k + 32], "big") + 1)
+                                   % GROUP_R).to_bytes(32, "big")
+    other_commit = list(commits)
+    other_commit[0] = commits[1]
+    non_canonical = list(blobs)
+    non_canonical[1] = GROUP_R.to_bytes(32, "big") + blobs[1][32:]
+    const_blob = (42).to_bytes(32, "big") * width
+    const_c = kzg.blob_to_kzg_commitment(const_blob, settings, device)
+    const_p = kzg.compute_blob_kzg_proof(const_blob, const_c, settings, device)
+    zs = [kzg.compute_challenge(b, c, settings) for b, c in zip(blobs, commits)]
+    zs[0] = settings.roots_brp[int(rng.integers(0, width))]
+    root_proof, _ = kzg.compute_kzg_proof_impl(kzg.blob_to_polynomial(blobs[0], settings), zs[0],
+                                               settings, device)
+    variants = [
+        variant("swapped proof", False, proofs=swapped),
+        variant("changed blob element", False, blobs=[bytes(changed)] + blobs[1:]),
+        variant("another blob's commitment", False, commitments=other_commit),
+        variant("non-canonical element", False, blobs=non_canonical),
+        variant("constant blob, proof at infinity", True, blobs=[const_blob] + blobs[1:],
+                commitments=[const_c] + commits[1:], proofs=[const_p] + prfs[1:]),
+        variant("challenge on a domain point", True, proofs=[root_proof] + prfs[1:],
+                challenges=zs),
+    ]
+    return dict(settings=settings, blobs=blobs, commitments=commits, proofs=prfs,
+                unique=(uniq, cs, proofs), variants=variants)
