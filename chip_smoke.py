@@ -74,6 +74,37 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     ``testing.kzg_cell``, a Deneb block's 6 blobs on the unfused path
     (p50 ms), and one traced and one cProfiled warm batch.  Launch counts
     are read over this phase alone.
+12. The ingest kernels against their plain versions on the card,
+    tolerance 0 (integer arithmetic): the gather fold (row 11) at the flood
+    cell's shape (one batch's 2,048 lanes in its 16 committees, gathered
+    from the 65,536-row registry table), at BASELINE config 3's full shape
+    (32,768 lanes in 64 groups of 512 over a 2^20-row table tiling the
+    registry's points) and on edges (a group of P and -P under one scalar
+    and an empty group must read as the identity, the others must equal
+    the host lincomb); the G1 membership check (row 12) over 4,096 lanes
+    with a point outside G1 and a point of order 3 (both must read False).
+13. The main paths (BASELINE config 3, ``testing.flood_cell``: a
+    65,536-validator mainnet Deneb state, 32,768 single-bit attestations,
+    each signed by its attester's own key, in 16 wire batches of 2,048):
+    (a) the chain and the pubkey plane's table (``pubkey_table_build_s``);
+    (b) ``process_wire_batch`` over the 16 batches with the ``cuda`` BLS
+    backend (no pre-merge) and (c) with the ``reference`` backend on a
+    fresh chain, whose pre-merge folds every committee's pubkeys by row 11:
+    both must verify every attestation and leave equal pools, observed
+    attesters and fork-choice votes (``flood_atts_per_s`` and a stage
+    split for each); (d) a tampered batch (a signature by another key, an
+    undecompressable signature, a wrong target, an intra-batch duplicate,
+    a wrong bits length, garbage) must give the same rejects, entry by
+    entry, under (b), under (c) with the plane's device rung and with its
+    reference rung; (e) on fresh chains, with attestations of later
+    slots whose signatures the run has not seen, one traced batch per
+    backend (the device-busy share; a traced batch that lacks a kernel it
+    launched fails the run) and one cProfiled batch per backend; (f) ``load_trusted_setup`` of
+    ``KzgSettings.dev(4096)`` in the ceremony's format with
+    ``validate=True`` (``kzg_load_s``) must equal ``dev(4096)``, and a
+    ceremony with a point outside G1 must raise ``KzgError`` naming it.
+    Launch counts are read over this phase alone; row 11 must have
+    launched in (c), row 12 once in (f).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; the one before that the kernel table.
@@ -330,6 +361,7 @@ def main() -> int:
     bls_phases(torch, np, native, dev, table, build_s, max_mhz)
     epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s)
     kzg_phases(torch, np, native, dev, table, build_s, max_mhz)
+    ingest_phases(torch, np, dev, table, max_mhz)
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from start to the kernel table")
 
     print(json.dumps({"kernels": list(table.values())}))
@@ -553,8 +585,7 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> None:
         f"device time by name (us) "
         f"{[(k, round(v, 1)) for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])]}")
     if lost:
-        log(f"WARNING: the trace lacks kernels the run launched: {lost}; "
-            f"the busy figure above is short by their time")
+        raise SystemExit(f"the traced block batch lacks kernels the run launched: {lost}")
     fresh = T.fresh(block)
     log(f"host profile of one block batch, top 5 by own time (ms): "
         f"{host_top5(lambda: bls.verify_signature_sets(fresh, backend='cuda'))}")
@@ -841,7 +872,8 @@ def boundary_path(torch, np, dev, state, spec, fill: str) -> dict:
         f"({100 * (1 - busy / wall_ms):.1f}% idle; {spans} device spans); device time by name "
         f"(us) {[(n, round(v, 1)) for n, v in sorted(device_us.items(), key=lambda kv: -kv[1])][:8]}")
     if lost:
-        log(f"WARNING: the trace lacks kernels the run launched: {lost}")
+        raise SystemExit(f"{fill} fill: the traced boundary slot lacks kernels the run "
+                         f"launched: {lost}")
     log(f"{fill} fill, host profile of one boundary slot, top 5 by own time (ms): "
         f"{host_top5(lambda: per_slot_processing(profiled[2], spec))}")
     return launches
@@ -1105,6 +1137,342 @@ def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> None:
     log(f"host profile of one {n}-blob batch, top 5 by own time (ms): "
         f"{host_top5(lambda: kzg.verify_blob_kzg_proof_batch(blobs, commits, prfs, settings, dev))}")
     log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+
+FLOOD_SEED = 20240316
+FLOOD_VALIDATORS = 1 << 16       # cut from 2^20: the pubkey table's host build (PERF.md §4)
+FLOOD_ATTS = 1 << 15             # BASELINE config 3: 32k single-bit attestations a slot
+FULL_TABLE_ROWS = 1 << 20        # config 3's registry, for row 11 alone
+FULL_GROUPS = 64                 # 64 committees of 512 in config 3's full-size batch
+TAMPERED_ROWS = 16
+EDGE_ROWS = 4096                 # the edge case's table; row 12 runs over as many lanes
+
+
+def ingest_phases(torch, np, dev, table, max_mhz) -> None:
+    """Phases 12-13: the gossip attestation flood and the trusted-setup load."""
+    from lighthouse_tpu_torch import testing as T
+    from lighthouse_tpu_torch.chain import columnar_ingest as ci
+    from lighthouse_tpu_torch.chain import pubkey_plane
+    from lighthouse_tpu_torch.chain.beacon_chain import BeaconChain
+    from lighthouse_tpu_torch.crypto import kzg
+    from lighthouse_tpu_torch.crypto.bls import curve as cv
+    from lighthouse_tpu_torch.ops import bigint as bi
+    from lighthouse_tpu_torch.ops import bls_backend as bb
+    from lighthouse_tpu_torch.ops import bls_cuda, ec, msm, native_bls, pubkey_kernels
+    from lighthouse_tpu_torch.ops import epoch_kernels as ek
+    from lighthouse_tpu_torch.ops import sha256 as sha
+    from lighthouse_tpu_torch.state_transition import misc
+
+    t_phase = time.perf_counter()
+    props = torch.cuda.get_device_properties(0)
+    imad_per_s = props.multi_processor_count * IMAD_LANES_PER_SM * max_mhz * 1e6
+
+    def cuda_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def bound(fp_muls: int, nbytes: int) -> tuple[float, str]:
+        ops_ms = fp_muls * bls_cuda.IMADS_PER_FP_MUL / imad_per_s * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+    # -- 12. the gather fold and the G1 membership kernels against their plain
+    #        versions, tolerance 0 (integer arithmetic) ------------------------
+    t0 = time.perf_counter()
+    cell = T.flood_cell(FLOOD_VALIDATORS, FLOOD_ATTS, FLOOD_SEED, n_spare=6, device=dev)
+    flood_build_s = time.perf_counter() - t0
+    state, spec = cell["state"], cell["spec"]
+    log(f"built the flood cell ({FLOOD_VALIDATORS} validators, {FLOOD_ATTS} signed single-bit "
+        f"attestations in {len(cell['batches'])} batches of {len(cell['batches'][0])}) in "
+        f"{flood_build_s:.1f} s")
+    rng = np.random.default_rng(FLOOD_SEED)
+    rows_x, rows_y = pubkey_kernels.mont_rows(cell["points"])
+    per_slot = misc.get_committee_count_per_slot(spec, cell["shuffle"].shape[0])
+    committee_of = {int(v): (slot - int(state.slot)) * per_slot + c
+                    for slot in range(int(state.slot), cell["current_slot"])
+                    for c in range(per_slot)
+                    for v in misc.get_beacon_committee(state, spec, slot, c, cell["shuffle"])}
+
+    def scalars(n):
+        return [int(v) for v in rng.integers(1, 1 << 63, n, dtype=np.int64)]
+
+    def gather_case(tx, ty, rows, groups, n_groups, ks):
+        lane_idx, digits, g_pad = pubkey_kernels.lane_layout(
+            np.asarray(rows, np.int64), np.asarray(ks, np.uint64), np.asarray(groups, np.int64),
+            n_groups)
+        return (tx, ty, torch.from_numpy(lane_idx).to(dev), torch.from_numpy(digits).to(dev),
+                g_pad)
+
+    # the cell's shape: one batch's 2048 lanes in its 16 committees of 128,
+    # gathered from the 65,536-row registry table
+    tx, ty = pubkey_kernels.table_from_rows(rows_x, rows_y, dev)
+    batch0 = cell["attesters"][0]
+    groups0 = np.unique([committee_of[v] for v in batch0], return_inverse=True)[1]
+    cell_args = gather_case(tx, ty, batch0, groups0, int(groups0.max()) + 1,
+                            scalars(len(batch0)))
+    # config 3's full shape: 32,768 lanes in 64 groups of 512 over a 2^20-row
+    # table (tiling the registry's points: only the gather pattern matters)
+    reps = FULL_TABLE_ROWS // FLOOD_VALIDATORS
+    ftx, fty = (bi.to_tensor(np.tile(r, (reps, 1)), dev) for r in (rows_x, rows_y))
+    full_rows = rng.integers(0, FULL_TABLE_ROWS, FLOOD_ATTS)
+    full_args = gather_case(ftx, fty, full_rows, np.repeat(np.arange(FULL_GROUPS),
+                                                           FLOOD_ATTS // FULL_GROUPS),
+                            FULL_GROUPS, scalars(FLOOD_ATTS))
+    # edges: a group of P and -P under one scalar (the identity), an empty
+    # group, non-power-of-two groups, a repeated row
+    ex = list(cell["points"][:EDGE_ROWS - 1]) + [cv.g1_neg(cell["points"][0])]
+    etx, ety = ec.g1_words(ex, dev)
+    e_rows = [0, EDGE_ROWS - 1] + [int(r) for r in rng.integers(1, EDGE_ROWS - 1, 254)]
+    e_rows[7] = e_rows[9]
+    e_groups = [0, 0] + [int(g) for g in rng.choice([g for g in range(18) if g not in (0, 5)],
+                                                     254)]
+    e_ks = scalars(256)
+    e_ks[1] = e_ks[0]
+    edge_args = gather_case(etx, ety, e_rows, e_groups, 18, e_ks)
+    edge_want = native_bls.g1_lincomb_groups([ex[r] for r in e_rows[2:]], e_ks[2:],
+                                             e_groups[2:], 18)
+    cases = []
+    for key, label, args in (("gather_fold", f"gather_fold [cell: {len(batch0)} lanes, "
+                              f"{int(groups0.max()) + 1} committees, {FLOOD_VALIDATORS}-row "
+                              f"table]", cell_args),
+                             ("gather_fold@full", f"gather_fold [config 3: {FLOOD_ATTS} lanes, "
+                              f"{FULL_GROUPS} groups of {FLOOD_ATTS // FULL_GROUPS}, "
+                              f"{FULL_TABLE_ROWS}-row table]",
+                              full_args),
+                             ("gather_fold@edges", "gather_fold [edges: 256 lanes, 18 groups "
+                              "(identity, empty)]", edge_args)):
+        digits_np = args[3].cpu().numpy()
+        lanes, segs = args[2].shape[0], args[4]
+        cases.append((key, label, msm.gather_fold_device, msm.gather_fold_plain, args,
+                      bls_cuda.gather_fold_fp_muls(digits_np, segs),
+                      lanes * (96 + 4 + 64) + segs * 97, "lighthouse_tpu/ops/msm.py:127", 3))
+    sub = list(cell["points"][2:EDGE_ROWS])
+    sub = [T.non_g1_point(3), T.ORDER3_G1] + sub
+    sxp, syp = ec.g1_words(sub, dev)
+    cases.append(("g1_subgroup", f"g1_subgroup [{len(sub)} lanes, a non-G1 point and a point "
+                  "of order 3]", bb.g1_subgroup_device, bb.g1_subgroup_plain, (sxp, syp),
+                  len(sub) * bls_cuda.G1_SUBGROUP_LANE, len(sub) * 97,
+                  "lighthouse_tpu/ops/bls_backend.py:207", 3))
+    for key, label, kernel, plain, kargs, fp_muls, nbytes, replaces, reps_ in cases:
+        got = kernel(*kargs)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(*kargs)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        if [g_.shape for g_ in got] != [w_.shape for w_ in want]:
+            raise SystemExit(f"{label}: shapes {[list(g_.shape) for g_ in got]} != "
+                             f"{[list(w_.shape) for w_ in want]}")
+        err = max(int((g_.long() - w_.long()).abs().max()) for g_, w_ in zip(got, want))
+        if err != 0:
+            raise SystemExit(f"{label}: kernel disagrees with its plain version (max err {err})")
+        if key == "g1_subgroup":
+            verdict = got[0].tolist()
+            if verdict[:2] != [False, False] or not all(verdict[2:]):
+                raise SystemExit(f"{label}: wrong membership verdicts {verdict[:4]}...")
+        if key == "gather_fold@edges":
+            xs, ys = bi.mont_limbs_to_ints(bi.to_numpy(got[0])), bi.mont_limbs_to_ints(
+                bi.to_numpy(got[1]))
+            inf = got[2].tolist()
+            pts = [None if inf[g] else (xs[g], ys[g]) for g in range(18)]
+            if not (inf[0] and inf[5]) or pts[1:5] + pts[6:18] != \
+                    edge_want[1:5] + edge_want[6:18]:
+                raise SystemExit(f"{label}: identity flags {inf[:6]} or sums differ from the "
+                                 f"host lincomb")
+        ms = cuda_ms(lambda: kernel(*kargs), reps_)
+        bound_ms, bound_by = bound(fp_muls, nbytes)
+        log(f"kernel {label}: == plain (max err {err}); {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {fp_muls} Fp products)")
+        if "@" not in key:
+            table[key] = dict(name=key, route="cuda",
+                              source="lighthouse_tpu_torch/csrc/bls12_381.cu", replaces=replaces,
+                              launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        del got, want
+    log("gather_fold edges: the P + (-P) group and the empty group read as the identity; the "
+        "other 16 groups == the host lincomb")
+    del cases, ftx, fty, full_args, cell_args, edge_args
+    torch.cuda.empty_cache()
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
+    # -- 13. the main paths ------------------------------------------------------
+    path_kernels = (*bb.KERNELS, msm.gather_fold_device, bb.g1_subgroup_device,
+                    ek.shuffle_rounds, sha.sha256_block_device)
+
+    def launches():
+        return {k.__name__: k.launches for k in path_kernels}
+
+    def new_chain(backend, slot=cell["current_slot"]):
+        c = BeaconChain(spec, state, bls_backend=backend, device=dev)
+        c.slot_clock.set_slot(slot)
+        return c
+
+    def flood(c):
+        ci.reset_stages()
+        verified, rejects = 0, []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in cell["batches"]:
+            r = ci.process_wire_batch(c, [(blob, False) for blob in b])
+            verified += r.verified
+            rejects += r.rejects
+        torch.cuda.synchronize()
+        return verified, rejects, time.perf_counter() - t, ci.stage_snapshot()
+
+    def chain_view(c):
+        node, epoch, queued = c.fork_choice.votes()
+        return (c.naive_pool.snapshot(), c.observed_attesters.seen_indices(cell["epoch"]).tolist(),
+                node.tolist(), epoch.tolist(), queued)
+
+    # (a) the chain and the plane's table
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in path_kernels:
+        k.launches = 0
+    chain_b = new_chain("cuda")
+    plane = pubkey_plane.reset_pubkey_plane(dev)
+    t0 = time.perf_counter()
+    plane.ensure_table(state.validators)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    log(f"pubkey table: {plane.table_rows} rows in {table_s:.2f} s (decompression and "
+        f"membership of every key on the host, then the upload) -> at 2^20 validators about "
+        f"{table_s * (1 << 20) / FLOOD_VALIDATORS:.0f} s")
+    # (b) BLS backend cuda: the node's default on the card (no pre-merge)
+    verified_b, rejects_b, secs_b, stages_b = flood(chain_b)
+    launches_b = launches()
+    idle = [k for k in ("pipeline_device", "g2_subgroup_device", "fq12_mul_device",
+                        "shuffle_rounds", "sha256_block_device") if launches_b[k] == 0]
+    if idle:
+        raise SystemExit(f"kernels of the cuda-backend flood never launched: {idle}")
+    # (c) BLS backend reference, the plane's device rung: row 11 in each batch
+    chain_c = new_chain("reference")
+    before_c = launches()
+    verified_c, rejects_c, secs_c, stages_c = flood(chain_c)
+    launches_c = {k: v - before_c[k] for k, v in launches().items()}
+    if verified_b != FLOOD_ATTS or verified_c != FLOOD_ATTS or rejects_b or rejects_c:
+        raise SystemExit(f"the flood did not verify whole: cuda {verified_b} "
+                         f"(rejects {rejects_b[:5]}), reference {verified_c} "
+                         f"(rejects {rejects_c[:5]}) of {FLOOD_ATTS}")
+    if chain_view(chain_b) != chain_view(chain_c):
+        raise SystemExit("the two BLS backends left different pools, observed attesters or "
+                         "fork-choice votes")
+    if launches_c["gather_fold_device"] == 0 or plane.folds["device"] == 0:
+        raise SystemExit(f"row 11 never launched in the reference-backend flood: "
+                         f"{launches_c}, plane folds {plane.folds}")
+    for name, secs, stages in (("cuda", secs_b, stages_b), ("reference", secs_c, stages_c)):
+        log(json.dumps({"flood_atts_per_s": FLOOD_ATTS / secs, "flood_n": FLOOD_ATTS,
+                        "flood_verified": FLOOD_ATTS, "flood_batch_s": secs,
+                        "flood_build_s": flood_build_s, "flood_platform": "cuda",
+                        "bls_backend": name, "pubkey_table_build_s": table_s,
+                        "stages_s": stages["seconds"], "stage_counts": stages["counts"]}))
+    log(f"both backends: {FLOOD_ATTS} verified, equal pools ({len(chain_b.naive_pool)} "
+        f"aggregates), observed attesters and votes; launches over the cuda flood "
+        f"{launches_b}, over the reference flood {launches_c}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+
+    # (d) the tampered batch: the same rejects, entry by entry, in three runs
+    blobs, want = T.flood_tampered(cell, TAMPERED_ROWS)
+    outcomes = {}
+    for name, c, rung in (("cuda", chain_b, None), ("reference, device rung", chain_c, "device"),
+                          ("reference, reference rung", new_chain("reference"), "reference")):
+        before = launches()["gather_fold_device"]
+        with mock.patch.dict(os.environ, {"LHGPU_PUBKEY_BACKEND": rung} if rung else {}):
+            r = ci.process_wire_batch(c, [(b, False) for b in blobs])
+        outcomes[name] = (r.verified, dict(r.rejects), launches()["gather_fold_device"] - before)
+    verdicts = {(v, tuple(sorted(rj.items()))) for v, rj, _ in outcomes.values()}
+    if len(verdicts) != 1 or next(iter(outcomes.values()))[1] != want \
+            or next(iter(outcomes.values()))[0] != len(blobs) - len(want):
+        raise SystemExit(f"tampered batch: {outcomes}, expected rejects {want}")
+    if outcomes["reference, device rung"][2] == 0:
+        raise SystemExit("tampered batch: row 11 did not run on the forced device rung")
+    log(f"tampered batch of {len(blobs)}: the same rejects in all three runs {sorted(want.items())}"
+        f"; row 11 launches on the device rung {outcomes['reference, device rung'][2]}")
+
+    # (e) one traced and one cProfiled batch per backend, on fresh chains, with
+    # fresh signatures (the spare batches: a node sees each gossip signature
+    # once); the kernels a traced batch must show are those its wrappers
+    # launched in the traced step
+    from torch.profiler import ProfilerActivity, profile, schedule
+    kernel_names = {"pipeline_device": ["k_gj_scalar_mul", "k_miller", "k_fq12_mul_halves"],
+                    "g2_subgroup_device": ["k_g2_subgroup"], "fq12_mul_device": ["k_fq12_mul"],
+                    "blinded_fold_device": ["k_blinded_final"],
+                    "gather_fold_device": ["k_g1_gather_scalar_mul", "k_g1_affine"],
+                    "g1_subgroup_device": ["k_g1_subgroup"],
+                    "shuffle_rounds": ["k_shuffle_rounds"],
+                    "sha256_block_device": ["k_sha256_block"]}
+    spare = iter(cell["spare"])
+    for name in ("cuda", "reference"):
+        c = new_chain(name, cell["spare_slot"])
+        c.committee_shuffle(state, cell["epoch"])
+        with tempfile.TemporaryDirectory() as tmp:
+            trace_path = os.path.join(tmp, "flood.json")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=lambda p_: p_.export_chrome_trace(trace_path)) as prof:
+                for _ in range(2):
+                    b = next(spare)
+                    before = launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ci.process_wire_batch(c, [(blob, False) for blob in b])
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                    prof.step()
+            traced = {k: v - before[k] for k, v in launches().items() if v > before[k]}
+            busy, spans, device_us = device_busy(trace_path)
+        lost = [n for k in traced for n in kernel_names[k]
+                if not any(d.startswith(n) for d in device_us)]
+        log(f"{name} backend, profiled batch of {len(b)}: wall {wall_ms:.1f} ms, device busy "
+            f"{busy:.3f} ms ({100 * (1 - busy / wall_ms):.1f}% idle; {spans} device spans); "
+            f"wrapper launches {traced}; device time by name (us) "
+            f"{[(n, round(v, 1)) for n, v in sorted(device_us.items(), key=lambda kv: -kv[1])][:8]}")
+        if lost:
+            raise SystemExit(f"the traced {name} batch lacks kernels the run launched: {lost}")
+        b = next(spare)
+        log(f"{name} backend, host profile of one batch, top 5 by own time (ms): "
+            f"{host_top5(lambda: ci.process_wire_batch(c, [(x, False) for x in b]))}")
+
+    # (f) the trusted-setup cell: KzgSettings.load_trusted_setup(validate=True)
+    settings = kzg.KzgSettings.dev(KZG_WIDTH, device=dev)
+    ceremony = T.ceremony_dict(settings)
+    before = bb.g1_subgroup_device.launches
+    t0 = time.perf_counter()
+    loaded = kzg.KzgSettings.load_trusted_setup(ceremony, validate=True, device=dev)
+    kzg_load_s = time.perf_counter() - t0
+    load_launches = bb.g1_subgroup_device.launches - before
+    if (loaded.width, loaded.g1_lagrange_brp, loaded.g2_tau, loaded.roots_brp) != \
+            (settings.width, settings.g1_lagrange_brp, settings.g2_tau, settings.roots_brp):
+        raise SystemExit("load_trusted_setup of the dev ceremony differs from KzgSettings.dev")
+    if load_launches != 1:
+        raise SystemExit(f"load_trusted_setup launched row 12 {load_launches} times, not once")
+    bad_at = KZG_WIDTH * 3 // 10
+    tampered = dict(ceremony, g1_lagrange=list(ceremony["g1_lagrange"]))
+    tampered["g1_lagrange"][bad_at] = "0x" + cv.g1_to_bytes(T.non_g1_point(5)).hex()
+    try:
+        kzg.KzgSettings.load_trusted_setup(tampered, validate=True, device=dev)
+        raise SystemExit("a ceremony with a point outside G1 loaded")
+    except kzg.KzgError as e:
+        if f"index {bad_at} " not in str(e):
+            raise SystemExit(f"the tampered ceremony's error names the wrong point: {e}")
+    table["gather_fold"]["launches"] = launches_c["gather_fold_device"]
+    table["g1_subgroup"]["launches"] = load_launches
+    log(json.dumps({"kzg_load_s": kzg_load_s, "kzg_load_width": settings.width,
+                    "kzg_load_g1_points": settings.width}))
+    log(f"load_trusted_setup(dev({KZG_WIDTH}) as a ceremony, validate=True) == KzgSettings.dev; a "
+        f"non-G1 point at {bad_at} raises KzgError naming it; launches over phase 13 {launches()}")
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -47,6 +47,11 @@ def _hash_to_g2_memo(message: bytes):
     return pt
 
 
+# process-wide interning of wire keys and signatures (bounded)
+_PK_INTERN = LruCache(capacity=1 << 21)
+_SIG_INTERN = LruCache(capacity=1 << 17)
+
+
 class PublicKey:
     """Compressed G1 public key with lazy decompression and cached
     Montgomery words (a node keeps its validators' keys decompressed)."""
@@ -80,6 +85,37 @@ class PublicKey:
 
     def to_bytes(self) -> bytes:
         return self._bytes
+
+    @staticmethod
+    def interned(data: bytes) -> "PublicKey":
+        """One PublicKey object per key bytes, process-wide, so its
+        decompression, membership check and words are paid once per
+        validator whichever state or batch the key appears in."""
+        pk = _PK_INTERN.get(data)
+        if pk is None:
+            pk = PublicKey(data)
+            _PK_INTERN.put(bytes(data), pk)
+        return pk
+
+    @staticmethod
+    def decompress_batch(pks: Sequence["PublicKey"]) -> bool:
+        """Decompress and membership-check every not-yet-decompressed key
+        in one native call each (``csrc/bls_host.cc``).  A key that fails
+        either step, or encodes infinity, stays pending, so that its
+        ``point`` raises for it alone.  False if any failed."""
+        from lighthouse_tpu_torch.ops import native_bls
+
+        pending = [pk for pk in pks if pk._point is None]
+        if not pending:
+            return True
+        pts = native_bls.g1_decompress_batch([pk._bytes for pk in pending])
+        live = [(pk, pt) for pk, pt in zip(pending, pts)
+                if pt is not None and pt != native_bls.G1_INF]
+        verdicts = native_bls.g1_in_subgroup_batch([pt for _pk, pt in live])
+        for (pk, pt), ok in zip(live, verdicts):
+            if ok == 1:
+                pk._point = pt
+        return len(live) == len(pending) and all(v == 1 for v in verdicts)
 
     def __eq__(self, o):
         return isinstance(o, PublicKey) and self._bytes == o._bytes
@@ -137,6 +173,49 @@ class Signature:
 
     def __repr__(self):
         return f"Signature({self._bytes.hex()[:16]}…)"
+
+    @staticmethod
+    def interned(data: bytes) -> "Signature":
+        """One Signature object per signature bytes, process-wide: its
+        decompressed point and membership verdict (properties of the bytes)
+        are paid once, however many batches or duplicate copies carry it."""
+        sig = _SIG_INTERN.get(data)
+        if sig is None:
+            sig = Signature(data)
+            _SIG_INTERN.put(bytes(data), sig)
+        return sig
+
+    @staticmethod
+    def subgroup_check_batch(sigs: Sequence["Signature"]) -> bool:
+        """Complete the G2 membership test of every decompressed,
+        not-yet-checked signature in one native call.  Passing signatures
+        are marked checked; failing and infinity ones stay unmarked, so
+        per-signature paths check them again and attribute.  True when
+        every pending signature passed."""
+        from lighthouse_tpu_torch.ops import native_bls
+
+        pending, pts = [], []
+        all_finite = True
+        for s in sigs:
+            if s._subgroup_ok:
+                continue
+            try:
+                pt = s.point_unchecked()
+            except (BlsError, ValueError):
+                all_finite = False
+                continue
+            if pt is cv.INF:
+                all_finite = False
+                continue
+            pending.append(s)
+            pts.append(((pt[0].a, pt[0].b), (pt[1].a, pt[1].b)))
+        ok = all_finite
+        for s, v in zip(pending, native_bls.g2_in_subgroup_batch(pts)):
+            if v == 1:
+                s._subgroup_ok = True
+            else:
+                ok = False
+        return ok
 
     @staticmethod
     def decompress_batch(sigs: Sequence["Signature"]) -> bool:
@@ -212,9 +291,10 @@ def verify(pubkey: PublicKey, message: bytes, signature: Signature) -> bool:
 
 
 def _verify_signature_sets_reference(sets: Sequence[SignatureSet],
-                                     chunk_size: int | None = None) -> bool:
+                                     chunk_size: int | None = None, device=None) -> bool:
     """Randomized batch verification on the host (one multi-pairing).
-    ``chunk_size`` is accepted for seam compatibility and ignored."""
+    ``chunk_size`` and ``device`` are accepted for seam compatibility and
+    ignored."""
     if not sets:
         return False
     prepared = []

@@ -1,9 +1,7 @@
 """KZG polynomial commitments for EIP-4844 blobs (Deneb) on the card.
 
-Port of ``lighthouse_tpu/crypto/kzg.py`` (all of it except
-``load_trusted_setup``, which waits for a ceremony file in the repository):
-the math of the consensus specs' polynomial-commitments.md over the port's
-BLS12-381 core.  Entry points run on ``cuda`` unless ``device="cpu"`` is
+Port of ``lighthouse_tpu/crypto/kzg.py``: the math of the consensus specs'
+polynomial-commitments.md over the port's BLS12-381 core.  Entry points run on ``cuda`` unless ``device="cpu"`` is
 passed (the plain versions).
 
 Routing, as in the JAX package:
@@ -22,7 +20,10 @@ Routing, as in the JAX package:
   evaluations, ``g1_lincomb`` and ``_pairing_check`` (row 10, plus row 13
   for an MSM of 256 lanes or more);
 - single proofs (``verify_kzg_proof``, ``verify_blob_kzg_proof``) run one
-  multi-pairing (row 10).
+  multi-pairing (row 10);
+- ``KzgSettings.load_trusted_setup(source, validate=True)``, which every
+  Deneb node runs at startup, checks every G1 setup point's membership on
+  the card (row 12, ``bls_backend.batch_subgroup_check_g1``).
 
 Host work: G1 decompression and membership (native, batched), the
 Fiat-Shamir challenges (hashlib), r and its powers (``secrets``), lane
@@ -33,6 +34,7 @@ falls back: a failed build or launch raises.
 from __future__ import annotations
 
 import hashlib
+import json
 import secrets
 import time
 from dataclasses import dataclass, field
@@ -46,7 +48,7 @@ from lighthouse_tpu_torch.crypto.bls.fields import R as BLS_MODULUS
 from lighthouse_tpu_torch.device import resolve_device
 from lighthouse_tpu_torch.ops import bigint as bi
 from lighthouse_tpu_torch.ops import bls12_381 as t12
-from lighthouse_tpu_torch.ops import bls_cuda, ec, fr, msm, native_bls
+from lighthouse_tpu_torch.ops import bls_backend, bls_cuda, ec, fr, msm, native_bls
 
 BYTES_PER_FIELD_ELEMENT = 32
 KZG_ENDIANNESS = "big"
@@ -84,15 +86,17 @@ def _compute_roots_of_unity(order: int) -> list[int]:
 class KzgSettings:
     """Trusted setup in Lagrange form (bit-reversed order, like the spec).
 
-    g1_lagrange_brp[i] = L_brp(i)(τ)·G1;  g2_tau = τ·G2.  The ceremony
-    file's monomial points wait for a ported consumer (DAS,
-    ``load_trusted_setup``)."""
+    g1_lagrange_brp[i] = L_brp(i)(τ)·G1;  g2_tau = τ·G2.  A ceremony load
+    also keeps the monomial points (``g1_monomial`` when the file has them,
+    ``g2_monomial`` = [τ^i]·G2), which wait for a ported consumer (DAS)."""
 
     width: int
     g1_lagrange_brp: list          # affine G1 points (int pairs)
     g2_tau: object                 # τ·G2 (affine Fq2 point)
     roots_brp: list[int]
     _g2_rows: dict = field(default_factory=dict, repr=False, compare=False)
+    g1_monomial: list | None = field(default=None, repr=False, compare=False)
+    g2_monomial: list | None = field(default=None, repr=False, compare=False)
 
     @staticmethod
     @lru_cache(maxsize=4)
@@ -122,6 +126,64 @@ class KzgSettings:
         width = len(g1_lagrange_brp)
         return KzgSettings(width, list(g1_lagrange_brp), g2_tau,
                            _bit_reversal_permutation(_compute_roots_of_unity(width)))
+
+    @staticmethod
+    def load_trusted_setup(source, validate: bool = True, device=None) -> "KzgSettings":
+        """Load the ceremony output (the consensus specs'
+        ``trusted_setup_4096.json`` format: ``g1_lagrange`` in natural order
+        and ``g2_monomial``, compressed hex) from a dict or a JSON file.
+
+        Checks the power-of-two width and that ``g2_monomial[0]`` is the G2
+        generator.  With ``validate=True`` every G1 point (lagrange, then
+        monomial when present) passes the batched membership test on
+        ``device`` (row 12; ``cuda`` unless ``"cpu"``), and a failure raises
+        ``KzgError`` naming the first bad index; with ``validate=False``
+        only ``g1_lagrange[0]`` is checked, on the host.  The lagrange
+        points are then bit-reversal permuted, as c-kzg does."""
+        if isinstance(source, dict):
+            d = source
+        else:
+            with open(source) as f:
+                d = json.load(f)
+        n = len(d.get("g1_lagrange", ()))
+        if n == 0 or n & (n - 1):
+            raise KzgError(f"g1_lagrange length {n} is not a power of two "
+                           "(truncated trusted-setup file?)")
+
+        def hexes(key):
+            return [bytes.fromhex(h.removeprefix("0x")) for h in d[key]]
+
+        def g1_points(blobs, what):
+            out = native_bls.g1_decompress_batch(blobs)    # no membership check
+            for i, p in enumerate(out):
+                if p is None:
+                    raise KzgError(f"{what}[{i}] is not a compressed G1 point")
+                if p == native_bls.G1_INF:
+                    out[i] = cv.INF
+            return out
+
+        g1 = g1_points(hexes("g1_lagrange"), "g1_lagrange")
+        g1_monomial = (g1_points(hexes("g1_monomial"), "g1_monomial")
+                       if "g1_monomial" in d else None)
+        g2_raw = hexes("g2_monomial")
+        g2_monomial = [cv.g2_from_bytes(b) for b in g2_raw]
+        if g2_raw[0] != cv.g2_to_bytes(cv.g2_generator()):
+            raise KzgError("g2_monomial[0] is not the G2 generator")
+        if validate:
+            pts = g1 if g1_monomial is None else g1 + g1_monomial
+            ok = np.zeros(len(pts), bool)
+            finite = [i for i, p in enumerate(pts) if p is not cv.INF]
+            ok[finite] = bls_backend.batch_subgroup_check_g1([pts[i] for i in finite], device)
+            if not ok.all():
+                bad = np.nonzero(~ok)[0]
+                raise KzgError(f"{bad.size} trusted-setup G1 points fail the subgroup check "
+                               f"(first: index {int(bad[0])} of lagrange+monomial)")
+        elif g1[0] is cv.INF or not cv.g1_in_subgroup(g1[0]):
+            raise KzgError("g1_lagrange[0] fails the subgroup check")
+        s = KzgSettings.from_setup_points(_bit_reversal_permutation(g1), g2_monomial[1])
+        s.g1_monomial = g1_monomial
+        s.g2_monomial = g2_monomial
+        return s
 
     def g2_rows(self, device) -> tuple[torch.Tensor, torch.Tensor]:
         """(−G2, τ·G2) as Montgomery words (xq, yq int32 [2, 2, 12]) on

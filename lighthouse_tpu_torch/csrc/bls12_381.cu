@@ -18,6 +18,11 @@
 //   lh_g1_scalar_mul + lh_g1_add_halves + lh_miller + lh_fq12_mul_halves
 //                       -> crypto/kzg.py:437 _kzg_fused (wrapper
 //                          kzg.kzg_fused_device)
+//   lh_g1_gather_scalar_mul + lh_g1_add_halves + lh_g1_affine
+//                       -> ops/msm.py:127 _gather_fold (wrapper
+//                          msm.gather_fold_device)
+//   lh_g1_subgroup      -> ops/bls_backend.py:207 _g1_subgroup_kernel (wrapper
+//                          bls_backend.g1_subgroup_device)
 //
 // Bound: 32-bit integer multiply-adds.  Every Fp product is a 12-word CIOS
 // Montgomery multiply (2*12^2 + 12 multiply-adds); the data moved is a few
@@ -55,6 +60,24 @@ __global__ void k_g1_scalar_mul(long n, int n_digits, const u32* xs, const u32* 
                                 const int32_t* digits, u32* X, u32* Y, u32* Z) {
     long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i < n) lane_g1_scalar_mul(i, n, n_digits, xs, ys, digits, X, Y, Z);
+}
+
+__global__ void k_g1_gather_scalar_mul(long n, int n_digits, const u32* tx, const u32* ty,
+                                       const int32_t* idx, const int32_t* digits, u32* X,
+                                       u32* Y, u32* Z) {
+    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) lane_g1_gather_scalar_mul(i, n, n_digits, tx, ty, idx, digits, X, Y, Z);
+}
+
+__global__ void k_g1_affine(long n, const u32* X, const u32* Y, const u32* Z, u32* xa, u32* ya,
+                            uint8_t* inf) {
+    long g = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g < n) lane_g1_affine(g, X, Y, Z, xa, ya, inf);
+}
+
+__global__ void k_g1_subgroup(long n, const u32* xp, const u32* yp, uint8_t* out) {
+    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) lane_g1_subgroup(i, xp, yp, out);
 }
 
 __global__ void k_g1_add_halves(long half, u32* X, u32* Y, u32* Z) {
@@ -155,6 +178,29 @@ int lh_g2_subgroup(const u32* xq, const u32* yq, uint8_t* out, long long n, void
 int lh_blinded_final(const u32* X, const u32* Y, const u32* Z, const u32* ux, const u32* uy,
                      u32* xa, u32* ya, uint8_t* inf, long long n, void* stream) {
     k_blinded_final<<<blocks(n), kBlock, 0, S(stream)>>>(n, X, Y, Z, ux, uy, xa, ya, inf);
+    return (int)cudaGetLastError();
+}
+
+// gathered G1 lanes: table rows tx, ty [T, 12], lane rows idx [n], digits
+// [n_digits, n] -> X, Y, Z [n, 12]; 32-thread blocks as lh_g1_scalar_mul
+int lh_g1_gather_scalar_mul(const u32* tx, const u32* ty, const int32_t* idx,
+                            const int32_t* digits, u32* X, u32* Y, u32* Z, long long n,
+                            long long n_digits, void* stream) {
+    k_g1_gather_scalar_mul<<<(unsigned)((n + 31) / 32), 32, 0, S(stream)>>>(
+        n, (int)n_digits, tx, ty, idx, digits, X, Y, Z);
+    return (int)cudaGetLastError();
+}
+
+// the first n Jacobian rows of X, Y, Z -> affine xa, ya [n, 12] and inf [n]
+int lh_g1_affine(const u32* X, const u32* Y, const u32* Z, u32* xa, u32* ya, uint8_t* inf,
+                 long long n, void* stream) {
+    k_g1_affine<<<blocks(n), kBlock, 0, S(stream)>>>(n, X, Y, Z, xa, ya, inf);
+    return (int)cudaGetLastError();
+}
+
+// affine G1 lanes xp, yp [n, 12] -> membership verdict out [n]
+int lh_g1_subgroup(const u32* xp, const u32* yp, uint8_t* out, long long n, void* stream) {
+    k_g1_subgroup<<<blocks(n), kBlock, 0, S(stream)>>>(n, xp, yp, out);
     return (int)cudaGetLastError();
 }
 

@@ -65,6 +65,11 @@ __constant__ u32 PSI_CY_W[2][12] = {
      0xda74d4a7u, 0xd1ca2087u, 0x96cebc1du, 0x2da25966u, 0xbbfd87d2u, 0x0e2b7eedu}};
 // |x| of the curve; the Miller loop runs bits 62..0, the psi check 63..0
 #define BLS_X_ABS 0xd201000000010000ull
+// r - 1 (little-endian words, 255 bits): the G1 membership scan's exponent
+__constant__ u32 RM1_W[8] = {
+    0x00000000u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u, 0x09a1d805u, 0x3339d808u,
+    0x299d7d48u, 0x73eda753u};
+#define BLS_RM1_BITS 255
 
 // Host builds may count Fp multiplications (the CPU tests check the counts
 // that bound the kernels' times against this code).
@@ -621,13 +626,15 @@ __device__ __forceinline__ void lane_gj_scalar_mul(long i, long n, int n_digits,
     st(SX, SY, SZ, i, a2);
 }
 
-// r*P for G1 lane i over MSB-first 4-bit digits [n_digits, n] (the G1 half
-// of lane_gj_scalar_mul; ec.g1_scalar_mul_windowed): a zero scalar gives
-// exact zeros and no work, and the accumulator is not doubled while it is
+// r*P for G1 lane i, P the affine row ``row`` of (xs, ys), over MSB-first
+// 4-bit digits [n_digits, n] (the G1 half of lane_gj_scalar_mul;
+// ec.g1_scalar_mul_windowed): a zero scalar gives exact zeros and no work
+// (its row is never read), and the accumulator is not doubled while it is
 // infinity
-__device__ __forceinline__ void lane_g1_scalar_mul(long i, long n, int n_digits, const u32* xs,
-                                                   const u32* ys, const int32_t* digits, u32* X,
-                                                   u32* Y, u32* Z) {
+__device__ __forceinline__ void g1_scalar_mul_row(long i, long n, int n_digits, const u32* xs,
+                                                  const u32* ys, long row,
+                                                  const int32_t* digits, u32* X, u32* Y,
+                                                  u32* Z) {
     Jac<Fp> a1;
     jac_zero(a1);
     int any = 0;
@@ -638,8 +645,8 @@ __device__ __forceinline__ void lane_g1_scalar_mul(long i, long n, int n_digits,
     }
     Jac<Fp> tab1[16];
     Fp x1, y1;
-    ld(x1, xs, i);
-    ld(y1, ys, i);
+    ld(x1, xs, row);
+    ld(y1, ys, row);
     window_table(tab1, x1, y1);
     bool inf = true;
 #pragma unroll 1
@@ -652,6 +659,23 @@ __device__ __forceinline__ void lane_g1_scalar_mul(long i, long n, int n_digits,
         inf = inf && pick_inf;
     }
     st(X, Y, Z, i, a1);
+}
+
+// r*P for G1 lane i over its own affine row of (xs, ys)
+__device__ __forceinline__ void lane_g1_scalar_mul(long i, long n, int n_digits, const u32* xs,
+                                                   const u32* ys, const int32_t* digits, u32* X,
+                                                   u32* Y, u32* Z) {
+    g1_scalar_mul_row(i, n, n_digits, xs, ys, i, digits, X, Y, Z);
+}
+
+// r*P for G1 lane i, P read straight from row idx[i] of the resident table
+// (tx, ty) with no gathered copy (msm._gather_fold's gather + windowed scan)
+__device__ __forceinline__ void lane_g1_gather_scalar_mul(long i, long n, int n_digits,
+                                                          const u32* tx, const u32* ty,
+                                                          const int32_t* idx,
+                                                          const int32_t* digits, u32* X, u32* Y,
+                                                          u32* Z) {
+    g1_scalar_mul_row(i, n, n_digits, tx, ty, (long)idx[i], digits, X, Y, Z);
 }
 
 // rows i and i + half of a G1 (or G2) lane array -> row i (one tree level)
@@ -852,6 +876,21 @@ __device__ __noinline__ void fp_inv(Fp& r, const Fp& a) {
     r = out;
 }
 
+// Jacobian p -> affine row g of (xa, ya) and its infinity flag; an infinity
+// row (Z == 0, whose inverse is 0) comes out as zeros
+__device__ __forceinline__ void g1_affine_out(long g, const Jac<Fp>& p, u32* xa, u32* ya,
+                                              uint8_t* inf) {
+    Fp zi, zi2, zi3, x, y;
+    fp_inv(zi, p.Z);
+    fp_mul(zi2, zi, zi);
+    fp_mul(x, p.X, zi2);
+    fp_mul(zi3, zi2, zi);
+    fp_mul(y, p.Y, zi3);
+    st(xa, g, x);
+    st(ya, g, y);
+    inf[g] = fp_is_zero(p.Z);
+}
+
 // segment g of the blinded fold after its tree: add the known blinding
 // total -U = (ux, uy, 1), convert to affine, flag infinity
 // (msm._blinded_fold)
@@ -864,15 +903,42 @@ __device__ __forceinline__ void lane_blinded_final(long g, const u32* X, const u
     ld(u.Y, uy, 0);
     fp_one(u.Z);
     jac_add_full(p, p, u, -1, -1);
-    Fp zi, zi2, zi3, x, y;
-    fp_inv(zi, p.Z);
-    fp_mul(zi2, zi, zi);
-    fp_mul(x, p.X, zi2);
-    fp_mul(zi3, zi2, zi);
-    fp_mul(y, p.Y, zi3);
-    st(xa, g, x);
-    st(ya, g, y);
-    inf[g] = fp_is_zero(p.Z);
+    g1_affine_out(g, p, xa, ya, inf);
+}
+
+// segment g of the gather fold after its tree: affine and the infinity flag
+// (msm._gather_fold's g1_jacobian_to_affine_batch and is_zero_mod_p)
+__device__ __forceinline__ void lane_g1_affine(long g, const u32* X, const u32* Y, const u32* Z,
+                                               u32* xa, u32* ya, uint8_t* inf) {
+    Jac<Fp> p;
+    ld(p, X, Y, Z, g);
+    g1_affine_out(g, p, xa, ya, inf);
+}
+
+// G1 membership of affine lane i (ec.g1_subgroup_verdict_batch): S = [r-1]P
+// by the fixed MSB-first double-and-add scan of ec._scalar_mul_batch, then
+// d1 = x*Z^2 - X and d2 = y*Z^3 + Y; a member gives S = -P, so d1 == d2 == 0
+// with Z != 0.  Fail-closed: a small-order point that meets the H == 0
+// chord mid-scan drives Z to 0 for good and reads false.
+__device__ __forceinline__ void lane_g1_subgroup(long i, const u32* xp, const u32* yp,
+                                                 uint8_t* out) {
+    Fp x, y, z2, z3, xz, yz, d1, d2;
+    ld(x, xp, i);
+    ld(y, yp, i);
+    Jac<Fp> T;
+    jac_zero(T);
+    bool inf = true;
+#pragma unroll 1
+    for (int b = BLS_RM1_BITS - 1; b >= 0; b--)
+        dbl_add_step(T, inf, x, y, (int)((RM1_W[b / 32] >> (b % 32)) & 1));
+    if (inf) jac_zero(T);
+    fp_mul(z2, T.Z, T.Z);
+    fp_mul(xz, x, z2);
+    fp_mul(z3, z2, T.Z);
+    fp_mul(yz, y, z3);
+    fp_sub(d1, xz, T.X);
+    fp_add(d2, yz, T.Y);
+    out[i] = fp_is_zero(d1) && fp_is_zero(d2) && !fp_is_zero(T.Z);
 }
 
 }  // namespace bls

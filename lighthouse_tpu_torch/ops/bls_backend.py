@@ -21,6 +21,10 @@ Division of labour, as in the JAX package:
 - card, for batches whose member keys exceed their sets by 16 or more,
   the blinded pubkey fold (``msm.blinded_fold_device``).
 
+Beside the verifier: ``batch_subgroup_check_g1``, the [r-1]P membership
+test of many G1 points at once (``g1_subgroup_device``, row 12), which the
+trusted-setup load (``crypto/kzg.py``) runs over every setup point.
+
 There is no supervisor: a failed build or launch raises, and nothing falls
 back to the host or to the plain versions on a CUDA device.  On the CPU
 (``device="cpu"``) every wrapper runs its plain PyTorch version.
@@ -190,6 +194,52 @@ def g2_subgroup_device(xq: torch.Tensor, yq: torch.Tensor) -> torch.Tensor:
 
 
 g2_subgroup_device.launches = 0
+
+# --------------------------------------------------------------------------
+# lh_g1_subgroup: plain version and kernel wrapper
+# --------------------------------------------------------------------------
+
+def g1_subgroup_plain(xp: torch.Tensor, yp: torch.Tensor) -> torch.Tensor:
+    return ec.g1_subgroup_verdict_plain(bi.u64(xp), bi.u64(yp))
+
+
+def g1_subgroup_device(xp: torch.Tensor, yp: torch.Tensor) -> torch.Tensor:
+    """[r-1]P == -P per affine G1 lane (int32 [N, 12] each) -> bool[N].
+    Replaces ``lighthouse_tpu/ops/bls_backend.py:207`` ``_g1_subgroup_kernel``.
+    One thread per lane runs the fixed 255-bit double-and-add scan; bound:
+    ``bls_cuda.G1_SUBGROUP_LANE`` Fp products a lane."""
+    bls_cuda.check(xp, (bi.L,), "g1_subgroup xp")
+    bls_cuda.check(yp, (bi.L,), "g1_subgroup yp")
+    dev = bls_cuda.same_device("g1_subgroup", xp, yp)
+    if xp.shape != yp.shape:
+        raise ValueError("g1_subgroup: x and y rows differ in shape")
+    if dev.type == "cpu":
+        return g1_subgroup_plain(xp, yp)
+    out = torch.empty(xp.shape[0], dtype=torch.uint8, device=dev)
+    if xp.shape[0]:
+        bls_cuda.launch("lh_g1_subgroup", xp, yp, out, xp.shape[0])
+        g1_subgroup_device.launches += 1
+    return out.bool()
+
+
+g1_subgroup_device.launches = 0
+
+
+def batch_subgroup_check_g1(points, device=None) -> np.ndarray:
+    """G1 membership of affine int points -> bool[n], on ``device``
+    (``cuda`` unless ``device="cpu"``): the points padded with the
+    generator to a power of two (at least 4), as the JAX package pads them,
+    then one ``g1_subgroup_device`` launch.  Synchronous: the trusted-setup
+    load reads the verdict at once."""
+    n = len(points)
+    if n == 0:
+        return np.zeros(0, bool)
+    dev = resolve_device(device)
+    padded = msm.bucket(n, floor=4)
+    pts = list(points) + [cv.g1_generator()] * (padded - n)
+    xp, yp = ec.g1_words(pts, dev)
+    return g1_subgroup_device(xp, yp)[:n].cpu().numpy()
+
 
 KERNELS = (pipeline_device, g2_subgroup_device, msm.blinded_fold_device, dp.fq12_mul_device)
 

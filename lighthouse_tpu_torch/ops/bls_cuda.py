@@ -6,7 +6,8 @@ The kernel wrappers live beside their plain versions in the modules of
 their JAX counterparts: on the batch-verify path
 ``bls_backend.pipeline_device`` and ``bls_backend.g2_subgroup_device``,
 ``msm.blinded_fold_device`` and ``dispatch_pipeline.fq12_mul_device``; on
-the KZG path ``fr.fr_to_mont_device``, ``fr.eval_device``,
+the attestation ingest path ``msm.gather_fold_device``; on the trusted-setup
+load ``bls_backend.g1_subgroup_device``; on the KZG path ``fr.fr_to_mont_device``, ``fr.eval_device``,
 ``msm.fold_device``, ``bls12_381.miller_reduce_device`` and
 ``kzg.kzg_fused_device``.
 Each checks its tensors here, launches on the current CUDA stream, raises
@@ -21,6 +22,7 @@ import ctypes
 import numpy as np
 import torch
 
+from lighthouse_tpu_torch.crypto.bls.fields import R as GROUP_R
 from lighthouse_tpu_torch.native import build_cuda_lib
 from lighthouse_tpu_torch.ops.bigint import P_INT
 
@@ -37,6 +39,9 @@ _SIGNATURES = {
         "lh_fq12_mul": (3, 1),
         "lh_g2_subgroup": (3, 1),
         "lh_blinded_final": (8, 1),
+        "lh_g1_gather_scalar_mul": (7, 2),
+        "lh_g1_affine": (6, 1),
+        "lh_g1_subgroup": (3, 1),
     },
     "kzg": {                                  # csrc/kzg.cu
         "lh_fr_to_mont": (2, 1),
@@ -70,6 +75,11 @@ MILLER_ADD = 19 * FP2_MUL + LINE_MUL
 MILLER_LANE = 17 + 63 * MILLER_DBL + _X_ADDS * MILLER_ADD
 PSI_LANE = (63 * JAC_DOUBLE + _X_ADDS * 11 + 5) * FP2_MUL + 2
 FP_INV = 381 + bin(P_INT - 2).count("1")
+_R_MINUS_1 = GROUP_R - 1
+# [r-1]P: 254 doublings after the top bit, a mixed add (11 products) per
+# later set bit, then the residues' 4 products
+G1_SUBGROUP_LANE = ((_R_MINUS_1.bit_length() - 1) * JAC_DOUBLE
+                    + (bin(_R_MINUS_1).count("1") - 1) * 11 + 4)
 
 
 def _track_fp_muls(digits: np.ndarray) -> np.ndarray:
@@ -139,6 +149,12 @@ def g1_fold_fp_muls(digits: np.ndarray, n_segments: int) -> int:
     to ``n_segments`` rows, where only adds of two live rows cost."""
     live = np.asarray(digits).any(axis=0)
     return g1_scalar_mul_fp_muls(digits) + tree_products(live, n_segments)[0] * JAC_ADD
+
+
+def gather_fold_fp_muls(digits: np.ndarray, n_segments: int) -> int:
+    """``msm.gather_fold_device``: the G1 fold of the gathered lanes, then
+    per segment the Fermat inversion and the 4 affine products."""
+    return g1_fold_fp_muls(digits, n_segments) + n_segments * (FP_INV + 4)
 
 
 def miller_reduce_fp_muls(live: np.ndarray) -> int:

@@ -292,6 +292,39 @@ def g2_subgroup_verdict_plain(xq: torch.Tensor, yq: torch.Tensor, bits=X_BITS64)
 
 
 # --------------------------------------------------------------------------
+# G1 membership verdict (ec.g1_subgroup_verdict_batch)
+# --------------------------------------------------------------------------
+
+R_MINUS_1_BITS = tuple(int(b) for b in bin(cv.R - 1)[2:])     # 255 bits, MSB first
+
+
+def g1_subgroup_verdict_plain(xp: torch.Tensor, yp: torch.Tensor) -> torch.Tensor:
+    """[r-1]P == -P per lane for affine G1 lanes (Fp [N, 12], int64 words)
+    -> bool[N].  S = [r-1]P by the double-and-add steps over r - 1's bits
+    (``ec._scalar_mul_batch``); the lane is in G1 iff x·Z² == X_S,
+    y·Z³ == -Y_S and Z ≠ 0.  For a point of order d outside G1, r - 1 ≡ -1
+    (mod d) would force d | r.  A small-order point that meets the H == 0
+    chord drives Z to zero and is rejected (fail closed, as
+    ``ec.g1_subgroup_check_batch``)."""
+    F = _G1
+    zero = torch.zeros_like(xp)
+    X, Y, Z = zero, zero, zero
+    inf = torch.ones(xp.shape[0], dtype=torch.bool, device=xp.device)
+    for bit in R_MINUS_1_BITS:
+        X, Y, Z, inf = dbl_add_step(F, X, Y, Z, inf, xp, yp, bit)
+    X, Y, Z = (_select(inf, zero, c, F) for c in (X, Y, Z))
+    z2 = bi.mont_mul(Z, Z)
+    q = MulQueue(bi.mont_mul)
+    r = [q(xp, z2), q(z2, Z)]
+    q.run()
+    xz, z3 = q[r[0]], q[r[1]]
+    yz = bi.mont_mul(yp, z3)
+    d1 = bi.sub(xz, X)
+    d2 = bi.add(yz, Y)
+    return bi.is_zero(d1) & bi.is_zero(d2) & ~bi.is_zero(Z)
+
+
+# --------------------------------------------------------------------------
 # inversion and affine conversion
 # --------------------------------------------------------------------------
 

@@ -4,11 +4,19 @@ host lincomb seam.
 
 Counterpart of ``lighthouse_tpu/ops/msm.py`` (``bucket`` :73,
 ``fold_segments_g1`` :89, ``fold_segments_gj`` :98, ``_fold_kernel`` :115,
-``_blinded_fold`` :143, ``fold_device`` :166, ``blinded_fold_device`` :183,
-``jacobian_rows_to_affine`` :191, ``host_lincomb_groups`` :210, ``msm_g1``
-:273).  The calibration of the routing threshold and the gather track stay
-out: ``msm_g1`` routes by the JAX package's static lane count
-(``_STATIC_DEVICE_MIN``).
+``_blinded_fold`` :143, ``fold_device`` :166, ``gather_fold_device`` :176,
+``blinded_fold_device`` :183, ``jacobian_rows_to_affine`` :191,
+``host_lincomb_groups`` :210, ``msm_g1`` :273).  The calibration of the
+routing threshold stays out: ``msm_g1`` routes by the JAX package's static
+lane count (``_STATIC_DEVICE_MIN``).
+
+``gather_fold_device`` is the kernel wrapper of row 11 (the gather track,
+``lh_g1_gather_scalar_mul``, ``lh_g1_add_halves`` then ``lh_g1_affine``):
+one thread per lane reads its pubkey row straight from the resident table
+by index and runs the 64-bit windowed scalar mul (16 digits), one tree
+launch per level sums the s-major segments, and one launch per segment
+converts to affine and flags the identity.  Bound: Fp products
+(``bls_cuda.gather_fold_fp_muls``).
 
 ``fold_device`` is the kernel wrapper of row 13 (``lh_g1_scalar_mul`` then
 ``lh_g1_add_halves``, ``csrc/bls12_381.cu``): one thread per lane runs the
@@ -166,6 +174,64 @@ def fold_device(xs, ys, digits, n_segments: int):
 
 
 fold_device.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the gather track (row 11)
+# --------------------------------------------------------------------------
+
+def gather_fold_plain(tx, ty, lane_idx, digits, n_segments: int):
+    """Plain version of ``gather_fold_device``: the G1 track on the
+    gathered rows, then affine (zeros for an identity segment) and the
+    identity flags."""
+    idx = lane_idx.long()
+    X, Y, Z = fold_segments_g1(bi.u64(tx[idx]), bi.u64(ty[idx]), digits.to(torch.int64),
+                               n_segments)
+    xa, ya = ec.g1_jacobian_to_affine(X, Y, Z)
+    return bi.i32(xa), bi.i32(ya), bi.is_zero(Z)
+
+
+def gather_fold_device(tx, ty, lane_idx, digits, n_segments: int):
+    """Σ k·P per segment with P gathered from a resident table: affine
+    Montgomery table rows tx, ty (int32 [T, 12]), the row of each lane
+    lane_idx (int32 [n]), MSB-first 4-bit digits (int32 [n_digits, n]; a
+    zero scalar is an identity lane whose row is not read), lanes s-major
+    over ``n_segments`` -> per segment (xa, ya) int32 [n_segments, 12]
+    affine and the identity flags bool[n_segments].  Replaces
+    ``lighthouse_tpu/ops/msm.py:127`` ``_gather_fold``."""
+    bls_cuda.check(tx, (bi.L,), "gather_fold tx")
+    bls_cuda.check(ty, (bi.L,), "gather_fold ty")
+    bls_cuda.check(lane_idx, (lane_idx.shape[-1],), "gather_fold lane_idx")
+    bls_cuda.check(digits, (lane_idx.shape[-1],), "gather_fold digits")
+    dev = bls_cuda.same_device("gather_fold", tx, ty, lane_idx, digits)
+    n = lane_idx.shape[0]
+    if (ty.shape != tx.shape or lane_idx.dim() != 1 or digits.dim() != 2 or n_segments < 1
+            or n % n_segments):
+        raise ValueError(f"gather_fold: table {list(tx.shape)}, {n} lanes, digits "
+                         f"{list(digits.shape)}, {n_segments} segments do not agree")
+    seg = n // n_segments
+    if seg & (seg - 1):
+        raise ValueError(f"gather_fold: segment size {seg} is not a power of two")
+    if dev.type == "cpu":
+        return gather_fold_plain(tx, ty, lane_idx, digits, n_segments)
+    X, Y, Z = (torch.empty((n, bi.L), dtype=torch.int32, device=dev) for _ in range(3))
+    bls_cuda.launch("lh_g1_gather_scalar_mul", tx, ty, lane_idx, digits, X, Y, Z, n,
+                    digits.shape[0])
+    launches = 1
+    half = n // 2
+    while half >= n_segments:
+        bls_cuda.launch("lh_g1_add_halves", X, Y, Z, half)
+        launches += 1
+        half //= 2
+    xa = torch.empty((n_segments, bi.L), dtype=torch.int32, device=dev)
+    ya = torch.empty_like(xa)
+    inf = torch.empty(n_segments, dtype=torch.uint8, device=dev)
+    bls_cuda.launch("lh_g1_affine", X, Y, Z, xa, ya, inf, n_segments)
+    gather_fold_device.launches += launches + 1
+    return xa, ya, inf.bool()
+
+
+gather_fold_device.launches = 0
 
 
 def jacobian_rows_to_affine(X, Y, Z) -> list:

@@ -43,9 +43,9 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p,
                 ctypes.POINTER(ctypes.c_int8)]
             lib.lhbls_g1_decompress_batch.restype = ctypes.c_long
-            lib.lhbls_g1_in_subgroup_batch.argtypes = [
-                ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_int8)]
-            lib.lhbls_g1_in_subgroup_batch.restype = ctypes.c_long
+            for fn in (lib.lhbls_g1_in_subgroup_batch, lib.lhbls_g2_in_subgroup_batch):
+                fn.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_int8)]
+                fn.restype = ctypes.c_long
             for fn in (lib.lhbls_g1_lincomb_groups, lib.lhbls_g2_lincomb_groups):
                 fn.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
                                ctypes.POINTER(ctypes.c_longlong), ctypes.c_long,
@@ -142,6 +142,19 @@ def g1_in_subgroup_batch(points) -> list[int]:
     buf = b"".join(int(x).to_bytes(48, "big") + int(y).to_bytes(48, "big") for x, y in points)
     out = (ctypes.c_int8 * n)()
     _load().lhbls_g1_in_subgroup_batch(buf, n, out)
+    return [int(v) for v in out]
+
+
+def g2_in_subgroup_batch(points) -> list[int]:
+    """G2 membership (the ψ check) of affine ((x.a, x.b), (y.a, y.b)) int
+    points, one native call: per point 1, 0 or -1 as for G1."""
+    n = len(points)
+    if n == 0:
+        return []
+    buf = b"".join(int(c).to_bytes(48, "big") for (xa, xb), (ya, yb) in points
+                   for c in (xa, xb, ya, yb))
+    out = (ctypes.c_int8 * n)()
+    _load().lhbls_g2_in_subgroup_batch(buf, n, out)
     return [int(v) for v in out]
 
 

@@ -272,6 +272,54 @@ class Bitvector(SSZType):
         return f"Bitvector[{self.length}]"
 
 
+def _pack_bits(value: Sequence[bool], nbytes: int) -> bytearray:
+    out = bytearray(nbytes)
+    for i, bit in enumerate(value):
+        if bit:
+            out[i // 8] |= 1 << (i % 8)
+    return out
+
+
+class Bitlist(SSZType):
+    def __init__(self, limit: int):
+        self.limit = limit
+        self.fixed_size = None
+
+    def serialize(self, value: Sequence[bool]) -> bytes:
+        if len(value) > self.limit:
+            raise ValueError(f"Bitlist[{self.limit}]: {len(value)} bits over limit")
+        out = _pack_bits(value, (len(value) + 8) // 8)
+        out[len(value) // 8] |= 1 << (len(value) % 8)      # delimiter
+        return bytes(out)
+
+    def deserialize(self, data: bytes) -> list[bool]:
+        if not data:
+            raise ValueError("Bitlist needs at least the delimiter byte")
+        last = data[-1]
+        if last == 0:
+            raise ValueError("Bitlist missing delimiter bit")
+        bit_len = (len(data) - 1) * 8 + last.bit_length() - 1
+        if bit_len > self.limit:
+            raise ValueError("Bitlist over limit")
+        return [bool(data[i // 8] >> (i % 8) & 1) for i in range(bit_len)]
+
+    def hash_tree_root(self, value: Sequence[bool], device=None) -> bytes:
+        if len(value) > self.limit:
+            raise ValueError(f"Bitlist[{self.limit}]: {len(value)} bits over limit")
+        root = sha_ops.merkleize(bytes(_pack_bits(value, (len(value) + 7) // 8)),
+                                 self.chunk_count(), device=resolve_device(device))
+        return sha_ops.mix_in_length(root, len(value))
+
+    def default(self) -> list[bool]:
+        return []
+
+    def chunk_count(self) -> int:
+        return (self.limit + 255) // 256
+
+    def __repr__(self):
+        return f"Bitlist[{self.limit}]"
+
+
 # ---------------------------------------------------------------------------
 # Composite types
 # ---------------------------------------------------------------------------

@@ -2,20 +2,21 @@
 sets, churn, committees and the next sync committee.
 
 Port of the part of ``lighthouse_tpu/state_transition/misc.py`` that epoch
-processing and the committee shuffle use.  The shuffle of a whole epoch's
+processing, the committee shuffle and attestation signing roots use.  The shuffle of a whole epoch's
 active set (``compute_committee_shuffle``) runs on the card through
 ``state_transition.shuffle``.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import math
 
 import numpy as np
 
 from lighthouse_tpu_torch.state_transition.shuffle import compute_shuffled_index, shuffle_list
-from lighthouse_tpu_torch.types import GENESIS_EPOCH, ChainSpec, make_types
+from lighthouse_tpu_torch.types import GENESIS_EPOCH, ChainSpec, ForkData, SigningData, make_types
 
 
 def current_epoch(state, spec: ChainSpec) -> int:
@@ -47,6 +48,40 @@ def get_seed(state, spec: ChainSpec, epoch: int, domain_type: int) -> bytes:
         epoch + spec.preset.epochs_per_historical_vector - spec.min_seed_lookahead - 1)
     return hashlib.sha256(
         domain_type.to_bytes(4, "little") + epoch.to_bytes(8, "little") + mix).digest()
+
+
+# --- domains and signing roots (JAX misc.py:25-70) --------------------------
+# The containers hashed here are two to eight chunks: hashlib on the host,
+# which is where the sha256 module routes a merkle tree this small anyway.
+
+@functools.lru_cache(maxsize=256)
+def compute_fork_data_root(current_version: bytes, genesis_validators_root: bytes) -> bytes:
+    return ForkData(current_version=bytes(current_version),
+                    genesis_validators_root=bytes(genesis_validators_root)).hash_tree_root("cpu")
+
+
+@functools.lru_cache(maxsize=256)
+def _compute_domain_cached(domain_type: int, fork_version: bytes,
+                           genesis_validators_root: bytes) -> bytes:
+    root = compute_fork_data_root(fork_version, genesis_validators_root)
+    return domain_type.to_bytes(4, "little") + root[:28]
+
+
+def compute_domain(domain_type: int, fork_version, genesis_validators_root) -> bytes:
+    """Memoized per (domain, fork version, network)."""
+    return _compute_domain_cached(int(domain_type), bytes(fork_version),
+                                  bytes(genesis_validators_root))
+
+
+def get_domain(state, spec: ChainSpec, domain_type: int, epoch: int | None = None) -> bytes:
+    e = epoch if epoch is not None else current_epoch(state, spec)
+    fork = state.fork
+    version = fork.previous_version if e < int(fork.epoch) else fork.current_version
+    return compute_domain(domain_type, version, state.genesis_validators_root)
+
+
+def compute_signing_root(obj_root: bytes, domain: bytes) -> bytes:
+    return SigningData(object_root=obj_root, domain=domain).hash_tree_root("cpu")
 
 
 def get_active_validator_indices(state, epoch: int) -> np.ndarray:

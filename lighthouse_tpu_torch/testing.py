@@ -14,7 +14,10 @@ every stage), or in a live mainnet chain's proportions.
 The signature batches are the two of ``BASELINE.json``: the signature sets
 of one mainnet block (``block_signature_sets``) and the 1k-set
 ``verify_signature_sets`` microbench (``microbench_sets``).  ``kzg_cell``
-builds its blob batch (config 5) with tampered and edge-case variants.
+builds its blob batch (config 5) with tampered and edge-case variants,
+``flood_cell`` the gossip attestation flood (config 3) and
+``flood_tampered`` its batch of bad rows, ``ceremony_dict`` a dev setup in
+the trusted-setup file's format, ``non_g1_point`` a curve point outside G1.
 """
 
 from __future__ import annotations
@@ -500,3 +503,177 @@ def kzg_cell(width: int = 4096, n_unique: int = 6, n_blocks: int = 128, seed: in
     ]
     return dict(settings=settings, blobs=blobs, commitments=commits, proofs=prfs,
                 unique=(uniq, cs, proofs), variants=variants)
+
+
+# --------------------------------------------------------------------------
+# the gossip attestation flood (BASELINE config 3) and the trusted setup
+# --------------------------------------------------------------------------
+
+FLOOD_BATCH = 2048              # the admission batch of the JAX package's bench.py:342
+
+
+def _attestation_blob(data_ssz: bytes, sig: bytes, committee_len: int, pos: int) -> bytes:
+    """Wire bytes of a single-bit Deneb attestation: the bits offset, the
+    data, the signature, then the bitlist with its delimiter."""
+    bits = bytearray(committee_len // 8 + 1)
+    bits[pos // 8] |= 1 << (pos % 8)
+    bits[committee_len // 8] |= 1 << (committee_len % 8)
+    return (4 + 128 + 96).to_bytes(4, "little") + data_ssz + sig + bytes(bits)
+
+
+def flood_cell(n_validators: int = 1 << 16, n_atts: int = 1 << 15, seed: int = 7,
+               batch: int = FLOOD_BATCH, n_spare: int = 0, device=None) -> dict:
+    """The gossip attestation flood of BASELINE config 3: a mainnet-preset
+    Deneb state of ``n_validators`` at the first slot of an epoch, whose
+    keys are ``consecutive_pubkeys(s0, n)`` (every key distinct: cycled
+    keys would let the ingest lane's dedup collapse a committee), and
+    ``n_atts`` single-bit attestations, one from each attester of the
+    epoch's first slots in committee order, each signed with its
+    attester's own key s0 + v (one native G2 lincomb: H(m) per committee,
+    scalar s0 + v per attester).  Every vote has head = target = the anchor
+    block.  Consecutive runs of ``batch`` attestations (a slot's, at the
+    default sizes) make one wire batch each, in a seeded random order.
+
+    Returns a dict: ``state``, ``spec``, ``s0``, ``anchor_root``,
+    ``current_slot`` (the clock: the slot after the last attested one),
+    ``batches`` (lists of wire blobs), ``attesters`` (the validator of each
+    blob, same nesting), ``shuffle``, ``epoch``, ``points`` (the registry's
+    affine pubkeys, for kernel checks), and ``spare``: ``n_spare`` more
+    batches from the slots after ``current_slot`` (fresh signatures for
+    traced runs; a chain needs its clock at ``spare_slot`` for them)."""
+    from lighthouse_tpu_torch.chain.beacon_chain import anchor_block_root
+    from lighthouse_tpu_torch.crypto.bls.hash_to_curve import hash_to_g2
+    from lighthouse_tpu_torch.ops import native_bls
+    from lighthouse_tpu_torch.state_transition import misc
+    from lighthouse_tpu_torch.types import AttestationData
+
+    state, spec = build_state(n_validators, seed, "mainnet")
+    rng = np.random.default_rng(seed + 1)
+    s0 = int(rng.integers(1, 1 << 62))
+    pks = consecutive_pubkeys(s0, n_validators)
+    state.validators.pubkeys = np.frombuffer(b"".join(pk.to_bytes() for pk in pks),
+                                             np.uint8).reshape(n_validators, 48).copy()
+    epoch = spec.compute_epoch_at_slot(int(state.slot))
+    anchor = anchor_block_root(state, device)
+    shuffle = misc.compute_committee_shuffle(state, spec, epoch, device=device)
+    per_slot = misc.get_committee_count_per_slot(spec, shuffle.shape[0])
+    domain = misc.get_domain(state, spec, spec.domain_beacon_attester, epoch)
+    target = Checkpoint(epoch=epoch, root=anchor)
+    h_pts = []
+
+    def slot_rows(first_slot: int, n: int) -> tuple[list, int]:
+        """(rows (data ssz, committee length, position, validator, H(m) id)
+        of the first n attesters from ``first_slot`` on, the next slot)."""
+        rows, slot = [], first_slot
+        while len(rows) < n:
+            for ci in range(per_slot):
+                committee = misc.get_beacon_committee(state, spec, slot, ci, shuffle)
+                data = AttestationData(slot=slot, index=ci, beacon_block_root=anchor,
+                                       source=state.current_justified_checkpoint, target=target)
+                h_pts.append(hash_to_g2(misc.compute_signing_root(data.hash_tree_root("cpu"),
+                                                                  domain)))
+                rows.extend((data.serialize(), committee.shape[0], pos, int(v), len(h_pts) - 1)
+                            for pos, v in enumerate(committee))
+            slot += 1
+        return rows[:n], slot
+
+    rows, current_slot = slot_rows(int(state.slot), n_atts)
+    # the slot at current_slot stays unattested (testing.flood_tampered's)
+    spare_rows, spare_slot = slot_rows(current_slot + 1, n_spare * batch)
+    every = rows + spare_rows
+    sigs = native_bls.g2_lincomb_groups(
+        [((h_pts[r[4]][0].a, h_pts[r[4]][0].b), (h_pts[r[4]][1].a, h_pts[r[4]][1].b))
+         for r in every], [s0 + r[3] for r in every], range(len(every)), len(every))
+    blobs = [_attestation_blob(r[0], cv.g2_to_bytes((Fq2(*q[0]), Fq2(*q[1]))), r[1], r[2])
+             for r, q in zip(every, sigs)]
+
+    def batched(lo_row: int, hi_row: int) -> tuple[list, list]:
+        out, who = [], []
+        for lo in range(lo_row, hi_row, batch):
+            order = lo + rng.permutation(min(batch, hi_row - lo))
+            out.append([blobs[i] for i in order])
+            who.append([every[i][3] for i in order])
+        return out, who
+
+    batches, attesters = batched(0, len(rows))
+    spare, _ = batched(len(rows), len(every))
+    return dict(state=state, spec=spec, s0=s0, anchor_root=anchor, current_slot=current_slot,
+                batches=batches, attesters=attesters, shuffle=shuffle, epoch=epoch,
+                points=[pk.point for pk in pks], spare=spare,
+                spare_slot=spare_slot if n_spare else current_slot)
+
+
+def flood_tampered(cell: dict, n_rows: int = 24) -> tuple[list, dict]:
+    """A small batch of the first members of the first two committees of
+    ``cell["current_slot"]`` (attesters the flood did not use), with every
+    kind of bad row the ingest lane must reject: a signature by another
+    key, an undecompressable signature, a wrong target root, an intra-batch
+    duplicate, a wrong bits length and a blob that is not SSZ.  Returns
+    (blobs, {entry: expected reason}); the other entries must verify."""
+    from lighthouse_tpu_torch.crypto.bls.hash_to_curve import hash_to_g2
+    from lighthouse_tpu_torch.state_transition import misc
+    from lighthouse_tpu_torch.types import AttestationData
+
+    state, spec, s0 = cell["state"], cell["spec"], cell["s0"]
+    slot, epoch, anchor = cell["current_slot"], cell["epoch"], cell["anchor_root"]
+    domain = misc.get_domain(state, spec, spec.domain_beacon_attester, epoch)
+    rows = []                   # [data ssz, signature, committee length, position]
+    for ci in (0, 1):
+        committee = misc.get_beacon_committee(state, spec, slot, ci, cell["shuffle"])
+        for target_root in (anchor, bytes(32)):
+            data = AttestationData(slot=slot, index=ci, beacon_block_root=anchor,
+                                   source=state.current_justified_checkpoint,
+                                   target=Checkpoint(epoch=epoch, root=target_root))
+            h = hash_to_g2(misc.compute_signing_root(data.hash_tree_root("cpu"), domain))
+            positions = range(n_rows // 2 - 1) if target_root == anchor else [n_rows // 2 - 1]
+            rows.extend([data.serialize(), cv.g2_to_bytes(cv.g2_mul(h, s0 + int(committee[pos]))),
+                         committee.shape[0], pos] for pos in positions)
+    half = n_rows // 2
+    want = {half - 1: "unknown_target_root", n_rows - 1: "unknown_target_root",
+            1: "invalid_signature", half + 1: "invalid_signature"}
+    rows[1][1] = rows[2][1]                                  # row 2's signature on row 1
+    rows[half + 1][1] = b"\x00" + rows[half + 1][1][1:]     # compression flag cleared
+    blobs = [_attestation_blob(*r) for r in rows]
+    blobs.append(blobs[0])                                   # a duplicate of row 0
+    want[len(blobs) - 1] = "duplicate_in_batch"
+    data_ssz, sig, length, _pos = rows[4]
+    blobs.append(_attestation_blob(data_ssz, sig, length - 1, 0))
+    want[len(blobs) - 1] = "aggregation_bits_length"
+    blobs.append(b"\x00\x01\x02")
+    want[len(blobs) - 1] = "decode_error"
+    return blobs, want
+
+
+def ceremony_dict(settings, tau: int = 0x123456789ABCDEF, n_g2: int = 65) -> dict:
+    """``settings`` (a ``KzgSettings.dev`` setup from ``tau``) in the
+    ceremony file's format: ``g1_lagrange`` in natural order and
+    ``g2_monomial`` = [τ^i]·G2 for i < ``n_g2``, compressed hex."""
+    from lighthouse_tpu_torch.crypto.kzg import _bit_reversal_permutation
+    from lighthouse_tpu_torch.ops import native_bls
+
+    g2 = cv.g2_generator()
+    pows = [pow(tau, i, GROUP_R) for i in range(n_g2)]
+    g2_pts = native_bls.g2_lincomb_groups(
+        [((g2[0].a, g2[0].b), (g2[1].a, g2[1].b))] * n_g2, pows, range(n_g2), n_g2)
+    return {
+        "g1_lagrange": ["0x" + cv.g1_to_bytes(p).hex()
+                        for p in _bit_reversal_permutation(settings.g1_lagrange_brp)],
+        "g2_monomial": ["0x" + cv.g2_to_bytes((Fq2(*q[0]), Fq2(*q[1]))).hex() for q in g2_pts],
+    }
+
+
+def non_g1_point(seed: int):
+    """A point of E(Fq) outside G1: a random curve point, which carries a
+    cofactor component."""
+    rng = np.random.default_rng(seed)
+    while True:
+        x = int.from_bytes(rng.bytes(48), "big") % FIELD_P
+        rhs = (x * x * x + 4) % FIELD_P
+        y = pow(rhs, (FIELD_P + 1) // 4, FIELD_P)
+        if y * y % FIELD_P == rhs and not cv.g1_in_subgroup((x, y)):
+            return x, y
+
+
+# a point of order 3 of E(Fq): (0, ±2) (x = 0 points are the curve's
+# inflection points)
+ORDER3_G1 = (0, 2)

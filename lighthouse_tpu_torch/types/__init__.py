@@ -20,18 +20,21 @@ from lighthouse_tpu_torch.types.registry import (
     Validators,
 )
 from lighthouse_tpu_torch.types.containers import (
+    AttestationData,
     BeaconBlockHeader,
     Checkpoint,
     Eth1Data,
     Fork,
+    ForkData,
     HistoricalSummary,
+    SigningData,
     Validator,
     make_types,
 )
 
 __all__ = [
     "FAR_FUTURE_EPOCH", "FORKS", "GENESIS_EPOCH", "MAINNET_PRESET", "MINIMAL_PRESET", "PRESETS",
-    "ChainSpec", "Preset", "RootsList", "RootsVector", "U8List", "U64List",
+    "AttestationData", "ChainSpec", "ForkData", "Preset", "SigningData", "RootsList", "RootsVector", "U8List", "U64List",
     "U64Vector", "ValidatorRegistryType", "Validators", "BeaconBlockHeader",
     "Checkpoint", "Eth1Data", "Fork", "HistoricalSummary", "Validator",
     "make_types",

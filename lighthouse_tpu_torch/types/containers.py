@@ -1,4 +1,5 @@
-"""The containers of a Deneb beacon state, parameterized by preset.
+"""The containers of a Deneb beacon state and of its gossip attestations,
+parameterized by preset.
 
 Port of the Deneb slice of ``lighthouse_tpu/types/containers.py``.  Field
 orders follow the consensus spec exactly: the state root depends on them.
@@ -60,6 +61,24 @@ class Eth1Data(ssz.Container):
     block_hash: ssz.Bytes32
 
 
+class ForkData(ssz.Container):
+    current_version: ssz.Bytes4
+    genesis_validators_root: ssz.Bytes32
+
+
+class AttestationData(ssz.Container):
+    slot: ssz.uint64
+    index: ssz.uint64
+    beacon_block_root: ssz.Bytes32
+    source: Checkpoint
+    target: Checkpoint
+
+
+class SigningData(ssz.Container):
+    object_root: ssz.Bytes32
+    domain: ssz.Bytes32
+
+
 class HistoricalSummary(ssz.Container):
     block_summary_root: ssz.Bytes32
     state_summary_root: ssz.Bytes32
@@ -73,7 +92,8 @@ def _container(name: str, field_specs: list[tuple[str, object]]):
 @lru_cache(maxsize=2)
 def make_types(preset: Preset) -> SimpleNamespace:
     """The preset-dependent containers: ``SyncCommittee``,
-    ``ExecutionPayloadHeaderDeneb`` and ``BeaconStateDeneb``."""
+    ``ExecutionPayloadHeaderDeneb``, ``BeaconStateDeneb`` and the Deneb
+    ``Attestation`` (phase0 to Deneb share its layout)."""
     P = preset
 
     SyncCommittee = _container("SyncCommittee", [
@@ -133,8 +153,15 @@ def make_types(preset: Preset) -> SimpleNamespace:
         ("historical_summaries", ssz.List(HistoricalSummary, P.historical_roots_limit)),
     ])
 
+    Attestation = _container("Attestation", [
+        ("aggregation_bits", ssz.Bitlist(P.max_validators_per_committee)),
+        ("data", AttestationData),
+        ("signature", ssz.Bytes96),
+    ])
+
     return SimpleNamespace(
         preset=P,
+        Attestation=Attestation,
         SyncCommittee=SyncCommittee,
         ExecutionPayloadHeaderDeneb=ExecutionPayloadHeaderDeneb,
         BeaconStateDeneb=BeaconStateDeneb,

@@ -37,6 +37,7 @@ class Preset:
     epochs_per_sync_committee_period: int
     bytes_per_logs_bloom: int
     max_extra_data_bytes: int
+    max_validators_per_committee: int = 2048     # both presets
 
 
 MAINNET_PRESET = Preset(
@@ -95,6 +96,7 @@ class ChainSpec:
     hysteresis_upward_multiplier: int = 5
 
     # time parameters
+    seconds_per_slot: int = 12
     min_seed_lookahead: int = 1
     max_seed_lookahead: int = 4
     min_validator_withdrawability_delay: int = 256
@@ -180,7 +182,7 @@ class ChainSpec:
         """The minimal config: every fork far in the future, as in the JAX
         package; ``with_forks_at(0, "deneb")`` gives a Deneb-at-genesis
         chain."""
-        return ChainSpec(preset=MINIMAL_PRESET, config_name="minimal",
+        return ChainSpec(preset=MINIMAL_PRESET, config_name="minimal", seconds_per_slot=6,
                          altair_fork_epoch=FAR_FUTURE_EPOCH,
                          bellatrix_fork_epoch=FAR_FUTURE_EPOCH,
                          capella_fork_epoch=FAR_FUTURE_EPOCH,
