@@ -105,6 +105,37 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     ceremony with a point outside G1 must raise ``KzgError`` naming it.
     Launch counts are read over this phase alone; row 11 must have
     launched in (c), row 12 once in (f).
+14. Row 9, the hard part of the final exponentiation
+    (``bls12_381.final_exp_hard_device``, ``csrc/bls12_381.cu``
+    ``lh_final_exp_hard``) against its plain PyTorch version on the card,
+    tolerance 0 (integer arithmetic), on 1 lane, on 132 lanes and on the
+    identity, and against the host oracle ``fields.final_exp_hard``; its
+    time, bound and plain time; then the block batch, its wrong-message
+    twin and the 768-blob KZG batch must give the same verdicts under
+    ``LHGPU_DEVICE_FINAL_EXP=0`` (the native host final exponentiation)
+    and ``=1`` (row 9), which must launch once a batch.
+15. Block verify end to end (BASELINE config 2, ``testing.block_cell``: a
+    2^20-validator mainnet-preset Deneb state and 3 consecutive full
+    blocks, each of 128 aggregate attestations over whole committees of
+    512, a full sync aggregate, 16 withdrawals, randao and proposal: 131
+    signature sets over 66,050 member keys), under each final
+    exponentiation route: ``process_block(VERIFY_BULK)`` cold once, then
+    ``block_verify_p50_ms`` as ``bench.py`` defines it (p50 of 7 runs on
+    fresh copies of the parent state advanced to the block's slot) with a
+    stage split (shuffle, sets, verify with its aggregate, pipeline and
+    final exponentiation, transition), held to BASELINE's 20 ms (printed
+    as met or not met; a miss does not fail the run); and
+    ``BeaconChain.process_block`` of the three blocks
+    (``block_import_p50_ms``, split into gossip, signatures, copy, advance,
+    transition, state root, import).  Launch counts are read over these
+    runs alone.  Afterwards: each imported block is its parent's child in
+    fork choice, both routes import the same roots, the last post-state
+    root equals a hashlib root of the same state, tampered blocks (two
+    attestation signatures swapped, a wrong state root, a wrong proposer
+    index) give the JAX package's reasons; then one traced import under
+    each final exponentiation route (the device-busy share; a kernel the
+    wrappers launched in it but the trace lacks fails the run, and so does
+    a device-route import without row 9) and one cProfiled import.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; the one before that the kernel table.
@@ -358,10 +389,13 @@ def main() -> int:
         f"{ {k: round(v, 2) for k, v in sorted(host.items(), key=lambda kv: -kv[1])} }")
 
     del state, replay
-    bls_phases(torch, np, native, dev, table, build_s, max_mhz)
+    block_sets = bls_phases(torch, np, native, dev, table, build_s, max_mhz)
     epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s)
-    kzg_phases(torch, np, native, dev, table, build_s, max_mhz)
+    kzg_batch = kzg_phases(torch, np, native, dev, table, build_s, max_mhz)
     ingest_phases(torch, np, dev, table, max_mhz)
+    final_exp_phase(torch, np, dev, table, max_mhz, block_sets, kzg_batch)
+    del block_sets, kzg_batch
+    block_phase(torch, np, dev, table)
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from start to the kernel table")
 
     print(json.dumps({"kernels": list(table.values())}))
@@ -372,8 +406,9 @@ def main() -> int:
     return 0
 
 
-def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> None:
-    """Phases 5-7: the BLS12-381 batch-verify path."""
+def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
+    """Phases 5-7: the BLS12-381 batch-verify path.  Returns the block
+    batch's signature sets (phase 14 verifies them again)."""
     from lighthouse_tpu_torch import testing as T
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto.bls import curve as cv
@@ -589,6 +624,7 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> None:
     fresh = T.fresh(block)
     log(f"host profile of one block batch, top 5 by own time (ms): "
         f"{host_top5(lambda: bls.verify_signature_sets(fresh, backend='cuda'))}")
+    return block
 
 
 def device_busy(trace_path: str) -> tuple[float, int, dict]:
@@ -886,8 +922,9 @@ KZG_BLOCKS = 128
 KZG_BLOCK_BLOBS = 6              # a Deneb block's most blobs
 
 
-def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> None:
-    """Phases 10-11: Deneb blob KZG verification."""
+def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> tuple:
+    """Phases 10-11: Deneb blob KZG verification.  Returns the 768-blob
+    batch and its setup (phase 14 verifies them again)."""
     from lighthouse_tpu_torch import testing as T
     from lighthouse_tpu_torch.crypto import kzg
     from lighthouse_tpu_torch.crypto.bls import curve as cv
@@ -1137,6 +1174,7 @@ def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> None:
     log(f"host profile of one {n}-blob batch, top 5 by own time (ms): "
         f"{host_top5(lambda: kzg.verify_blob_kzg_proof_batch(blobs, commits, prfs, settings, dev))}")
     log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return blobs, commits, prfs, settings
 
 
 FLOOD_SEED = 20240316
@@ -1473,6 +1511,338 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> None:
     log(f"load_trusted_setup(dev({KZG_WIDTH}) as a ceremony, validate=True) == KzgSettings.dev; a "
         f"non-G1 point at {bad_at} raises KzgError naming it; launches over phase 13 {launches()}")
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
+FINAL_EXP_SEED = 20240317
+FINAL_EXP_LANES = 132            # one per SM: the widest batch a Miller reduction ends in
+BLOCK_SEED = 20240318
+BLOCK_CELL_BLOCKS = 3            # distinct consecutive blocks for the chain import
+BLOCK_VERIFY_RUNS = 7            # bench.py's block_verify repeats
+BLOCK_VERIFY_LIMIT_MS = 20.0     # BASELINE.json north star: full mainnet-block verify p50
+
+
+def _final_exp_route(on: bool) -> None:
+    os.environ["LHGPU_DEVICE_FINAL_EXP"] = "1" if on else "0"
+
+
+def final_exp_phase(torch, np, dev, table, max_mhz, block, kzg_batch) -> None:
+    """Phase 14: row 9, the hard part of the final exponentiation."""
+    from lighthouse_tpu_torch import testing as T
+    from lighthouse_tpu_torch.crypto import bls, kzg
+    from lighthouse_tpu_torch.crypto.bls.fields import (
+        Fq2, Fq6, Fq12, P, final_exp_easy, final_exp_hard,
+    )
+    from lighthouse_tpu_torch.ops import bigint as bi
+    from lighthouse_tpu_torch.ops import bls12_381 as t12
+    from lighthouse_tpu_torch.ops import bls_cuda
+
+    t_phase = time.perf_counter()
+    props = torch.cuda.get_device_properties(0)
+    imad_per_s = props.multi_processor_count * IMAD_LANES_PER_SM * max_mhz * 1e6
+    rng = np.random.default_rng(FINAL_EXP_SEED)
+
+    def f2():
+        return Fq2(int.from_bytes(rng.bytes(48), "big") % P,
+                   int.from_bytes(rng.bytes(48), "big") % P)
+
+    ms_host = [final_exp_easy(Fq12(Fq6(f2(), f2(), f2()), Fq6(f2(), f2(), f2())))
+               for _ in range(8)]
+    rows = np.stack([t12.fq12_to_words(ms_host[i % 8]) for i in range(FINAL_EXP_LANES)])
+    rows[FINAL_EXP_LANES - 1] = t12.fq12_to_words(Fq12.ONE)
+    lanes = bi.to_tensor(rows, dev)
+    one = bi.to_tensor(t12.fq12_to_words(Fq12.ONE)[None], dev)
+    results = {}
+    for label, x in (("1 lane", lanes[:1].contiguous()), (f"{FINAL_EXP_LANES} lanes", lanes),
+                     ("identity", one)):
+        got = t12.final_exp_hard_device(x)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = t12.final_exp_hard_plain(x)        # timed once: thousands of small launches
+        end.record()
+        end.synchronize()
+        err = int((bi.u64(got) - bi.u64(want)).abs().max())
+        if got.shape != want.shape or err != 0:
+            raise SystemExit(f"final_exp_hard [{label}]: kernel disagrees with its plain version "
+                             f"(max err {err})")
+        results[label] = (got, err, start.elapsed_time(end))
+    got_rows = bi.to_numpy(results[f"{FINAL_EXP_LANES} lanes"][0])
+    n_check = min(8, FINAL_EXP_LANES - 1)
+    oracle = all(t12.fq12_from_words(got_rows[i]) == final_exp_hard(ms_host[i])
+                 for i in range(n_check))
+    if not oracle or t12.fq12_from_words(got_rows[-1]) != Fq12.ONE or \
+            t12.fq12_from_words(bi.to_numpy(results["identity"][0])) != Fq12.ONE:
+        raise SystemExit("final_exp_hard: the card disagrees with the host oracle "
+                         "fields.final_exp_hard (or maps one elsewhere)")
+
+    def cuda_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    for label in ("1 lane", f"{FINAL_EXP_LANES} lanes"):
+        n = 1 if label == "1 lane" else FINAL_EXP_LANES
+        x = lanes[:n].contiguous()
+        ms = cuda_ms(lambda: t12.final_exp_hard_device(x), 10)
+        fp_muls = n * bls_cuda.FINAL_EXP_HARD_LANE
+        ops_ms = fp_muls * bls_cuda.IMADS_PER_FP_MUL / imad_per_s * 1e3
+        bytes_ms = 2 * n * 576 / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = ((ops_ms, "operations") if ops_ms >= bytes_ms
+                              else (bytes_ms, "bytes"))
+        _got, err, plain_ms = results[label]
+        log(f"kernel final_exp_hard [{label}]: == plain (max err {err}); {ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms, bound {bound_ms:.6f} ms ({bound_by}: {fp_muls} Fp products)")
+        if n == 1:                  # the main path's shape: one product a call
+            table["final_exp_hard"] = dict(
+                name="final_exp_hard", route="cuda",
+                source="lighthouse_tpu_torch/csrc/bls12_381.cu",
+                replaces="lighthouse_tpu/ops/bls_backend.py:395", launches=0, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+    log(f"final_exp_hard == fields.final_exp_hard (host oracle) on {n_check} lanes; one maps "
+        f"to one")
+
+    # the verdicts under both routes of LHGPU_DEVICE_FINAL_EXP
+    blobs, commits, prfs, settings = kzg_batch
+    cases = {"block batch": (lambda: bls.verify_signature_sets(T.fresh(block), backend="cuda",
+                                                               device=dev), True),
+             "block batch, wrong message": (lambda: bls.verify_signature_sets(
+                 T.with_wrong_message(T.fresh(block), 2), backend="cuda", device=dev), False),
+             f"{len(blobs)}-blob KZG batch": (lambda: kzg.verify_blob_kzg_proof_batch(
+                 blobs, commits, prfs, settings, dev), True)}
+    verdicts = {}
+    for on in (False, True):
+        _final_exp_route(on)
+        t12.final_exp_hard_device.launches = 0
+        for name, (fn, want) in cases.items():
+            t0 = time.perf_counter()
+            ok = fn()
+            torch.cuda.synchronize()
+            verdicts[(name, on)] = (ok, round((time.perf_counter() - t0) * 1e3, 1))
+            if ok != want:
+                raise SystemExit(f"{name} with LHGPU_DEVICE_FINAL_EXP={int(on)}: verdict {ok}")
+        if on and t12.final_exp_hard_device.launches != len(cases):
+            raise SystemExit(f"the device route launched row 9 "
+                             f"{t12.final_exp_hard_device.launches} times, not {len(cases)}")
+    _final_exp_route(False)
+    log(f"verdicts (verdict, wall ms) under LHGPU_DEVICE_FINAL_EXP=0 / 1: "
+        f"{ {f'{k[0]} [{int(k[1])}]': v for k, v in verdicts.items()} }")
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+
+def block_phase(torch, np, dev, table) -> None:
+    """Phase 15: block verify end to end (BASELINE config 2)."""
+    from lighthouse_tpu_torch import testing as T
+    from lighthouse_tpu_torch.chain.beacon_chain import BeaconChain
+    from lighthouse_tpu_torch.chain.block_verification import BlockError
+    from lighthouse_tpu_torch.ops import bls12_381 as t12
+    from lighthouse_tpu_torch.ops import bls_backend as bb
+    from lighthouse_tpu_torch.ops import epoch_kernels as ek
+    from lighthouse_tpu_torch.ops import sha256 as sha
+    from lighthouse_tpu_torch.state_transition import SignatureStrategy, process_block
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    cell = T.block_cell(N_FULL, BLOCK_SEED, BLOCK_CELL_BLOCKS, device=dev)
+    spec, blocks = cell["spec"], cell["blocks"]
+    b0 = blocks[0].message
+    n_sets = 2 + len(b0.body.attestations) + 1
+    n_keys = sum(len(a.aggregation_bits) for a in b0.body.attestations) + 2 + \
+        spec.preset.sync_committee_size
+    log(f"block cell: {N_FULL} validators (mainnet preset, Deneb), {len(blocks)} blocks of "
+        f"{len(b0.body.attestations)} attestations, a full sync aggregate and "
+        f"{len(b0.body.execution_payload.withdrawals)} withdrawals ({n_sets} signature sets over "
+        f"{n_keys} member keys); built in {time.perf_counter() - t0:.1f} s, of which the key "
+        f"column {cell['keygen_s']:.1f} s")
+
+    path_kernels = (*bb.KERNELS, t12.final_exp_hard_device, *sha.KERNELS,
+                    sha.sha256_block_device, ek.shuffle_rounds)
+
+    def launches():
+        return {k.__name__: k.launches for k in path_kernels}
+
+    def verify_once(k=0, ledger=None):
+        state = cell["pre_states"][k].copy()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        process_block(state, spec, blocks[k], SignatureStrategy.VERIFY_BULK, device=dev,
+                      ledger=ledger)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, state
+
+    def new_chain():
+        return BeaconChain(spec, cell["state"], device=dev)
+
+    def import_all(c):
+        roots = []
+        for b in blocks:
+            c.slot_clock.set_slot(int(b.message.slot))
+            torch.cuda.synchronize()
+            roots.append(c.process_block(b))
+            torch.cuda.synchronize()
+        return roots
+
+    # the main path, counted: block verify (p50 of 7 after one warm-up, on
+    # fresh copies of the parent state advanced to the slot) and the chain
+    # import of the cell's distinct blocks, under each final exponentiation
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bb.reset_launches()
+    sha.reset_launches()
+    ek.reset_launches()
+    t12.final_exp_hard_device.launches = 0
+    results = {}
+    for route in ("native", "device"):
+        _final_exp_route(route == "device")
+        cold_ms, post = verify_once()
+        if post.hash_tree_root() != cell["post_roots"][0]:
+            raise SystemExit(f"block verify [{route}]: post-state root != the block's state root")
+        runs = [verify_once()[0] for _ in range(BLOCK_VERIFY_RUNS)]
+        bb._H2C_CACHE.clear()                # the import below hashes unseen messages
+        chain = new_chain()
+        roots = import_all(chain)
+        times = [chain.block_times[r] for r in roots]
+        results[route] = dict(cold_ms=cold_ms, runs=runs, p50=statistics.median(runs),
+                              chain=chain, roots=roots, times=times,
+                              import_p50=statistics.median(t["total"] for t in times) * 1e3)
+    _final_exp_route(False)
+    counted = launches()
+    peak = torch.cuda.max_memory_allocated()
+    idle = [k for k, v in counted.items() if v == 0 and k not in (
+        "fq12_mul_device", "fold_levels_device", "fold_to_root_device")]
+    if idle:
+        raise SystemExit(f"block path kernels never launched: {idle}")
+    table["final_exp_hard"]["launches"] = counted["final_exp_hard_device"]
+    log(f"launches over the block path (both routes): {counted}; max_memory_allocated {peak} "
+        f"bytes")
+
+    # checks after the counted run
+    for route, r in results.items():
+        chain, roots = r["chain"], r["roots"]
+        parent = cell["anchor_root"]
+        for b, root in zip(blocks, roots):
+            node = chain.fork_choice.proto.node(root)
+            if node["parent"] != parent or node["slot"] != int(b.message.slot):
+                raise SystemExit(f"fork choice [{route}]: block {root.hex()[:16]} is not a child "
+                                 f"of {parent.hex()[:16]} at its slot ({node})")
+            parent = root
+        last = chain.state_for_block(roots[-1])
+        if last.hash_tree_root() != cell["post_roots"][-1]:
+            raise SystemExit(f"chain import [{route}]: last post-state root differs")
+    if results["native"]["roots"] != results["device"]["roots"]:
+        raise SystemExit("the two final exponentiation routes imported different roots")
+    plain = results["native"]["chain"].state_for_block(results["native"]["roots"][-1]).copy()
+    plain._tree_cache = None
+    saved = sha._DEVICE_MIN_PAIRS, sha._DEVICE_FOLD_MIN_LEAVES
+    sha._DEVICE_MIN_PAIRS = sha._DEVICE_FOLD_MIN_LEAVES = 1 << 62
+    host_root = plain.hash_tree_root(dev)
+    sha._DEVICE_MIN_PAIRS, sha._DEVICE_FOLD_MIN_LEAVES = saved
+    del plain
+    if host_root != cell["post_roots"][-1]:
+        raise SystemExit(f"last post-state root {cell['post_roots'][-1].hex()} != hashlib "
+                         f"{host_root.hex()}")
+    reasons = {}
+    for want, bad in T.tampered_blocks(cell).items():
+        chain = new_chain()
+        chain.slot_clock.set_slot(int(bad.message.slot))
+        try:
+            chain.process_block(bad)
+            reasons[want] = "imported"
+        except BlockError as e:
+            reasons[want] = e.reason
+    if any(want != got for want, got in reasons.items()):
+        raise SystemExit(f"tampered blocks gave the wrong reasons: {reasons}")
+    log(f"imports: each block a child of its parent in fork choice, both routes the same roots, "
+        f"the last post-state root == hashlib {host_root.hex()}; tampered blocks rejected "
+        f"{reasons}")
+
+    for route, r in results.items():
+        _final_exp_route(route == "device")
+        ledger: dict = {}
+        verify_once(ledger=ledger)
+        bls_st = ledger.get("bls", {})
+        stages = {"shuffle": ledger.get("shuffle", 0.0), "sets": ledger.get("sets", 0.0),
+                  "verify": ledger.get("verify", 0.0),
+                  "verify.aggregate": bls_st.get("aggregate", 0.0),
+                  "verify.pipeline": bls_st.get("pipeline", 0.0) + bls_st.get("limbs", 0.0),
+                  "verify.final_exp": bls_st.get("final_exp", 0.0),
+                  "verify.other": (bls_st.get("subgroup", 0.0) + bls_st.get("prep_host", 0.0)),
+                  "transition": ledger["total"] - ledger.get("shuffle", 0.0)
+                  - ledger.get("sets", 0.0) - ledger.get("verify", 0.0)}
+        imp = {k: statistics.median(t[k] for t in r["times"]) * 1e3
+               for k in ("gossip", "signatures", "copy", "advance", "transition", "state_root",
+                         "import", "total")}
+        met = "met" if r["p50"] <= BLOCK_VERIFY_LIMIT_MS else "not met"
+        log(json.dumps({"route": route, "block_verify_p50_ms": r["p50"],
+                        "block_verify_runs_ms": r["runs"], "block_verify_cold_ms": r["cold_ms"],
+                        "block_verify_limit_ms": BLOCK_VERIFY_LIMIT_MS, "limit": met,
+                        "block_verify_stages_ms": {k: v * 1e3 for k, v in stages.items()},
+                        "block_import_p50_ms": r["import_p50"],
+                        "block_import_ms": [t["total"] * 1e3 for t in r["times"]],
+                        "block_import_stages_p50_ms": imp}))
+    _final_exp_route(False)
+    log(f"caches: block_verify_cold_ms is the first process_block of the run (hash-to-G2 of its "
+        f"{n_sets} messages and the member keys' Montgomery words computed); the "
+        f"{BLOCK_VERIFY_RUNS} runs repeat the same block (hash-to-G2 and key words cached; "
+        f"signatures decompressed and subgroup-checked anew each run); block_import hashes every message anew on each route "
+        f"(the hash-to-G2 cache cleared before it); the registry's keys are decompressed once, "
+        f"at the cell's build")
+
+    # one traced import of the first block per final exponentiation route
+    # (a fresh chain each, the counts of the traced import only), then a
+    # cProfiled one
+    from torch.profiler import ProfilerActivity, profile, schedule
+    names = {"pipeline_device": ("k_gj_scalar_mul", "k_miller"), "g2_subgroup_device":
+             ("k_g2_subgroup",), "blinded_fold_device": ("k_blinded_final",),
+             "hash_pairs_device": ("k_hash_pairs",), "final_exp_hard_device": ("k_final_exp_hard",),
+             "shuffle_rounds": ("k_shuffle_rounds",), "sha256_block_device": ("k_sha256_block",),
+             "fq12_mul_device": ("k_fq12_mul",), "fold_levels_device": ("k_hash_pairs",),
+             "fold_to_root_device": ("k_fold_subtrees",)}
+    for route in ("native", "device"):
+        _final_exp_route(route == "device")
+        with tempfile.TemporaryDirectory() as tmp:
+            trace_path = os.path.join(tmp, "block_import.json")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=lambda p_: p_.export_chrome_trace(trace_path)) as prof:
+                for _ in range(2):
+                    chain = new_chain()
+                    chain.slot_clock.set_slot(int(b0.slot))
+                    bb.reset_launches()
+                    sha.reset_launches()
+                    ek.reset_launches()
+                    t12.final_exp_hard_device.launches = 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    chain.process_block(blocks[0])
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                    prof.step()
+            busy, spans, device_us = device_busy(trace_path)
+        launched = {k: v for k, v in launches().items() if v}
+        lost = [k for fn, ks in names.items() if launched.get(fn) for k in ks
+                if not any(name.startswith(k) for name in device_us)]
+        log(f"traced import of block 1 [{route}]: wall {wall_ms:.1f} ms, device busy "
+            f"{busy:.3f} ms ({100 * (1 - busy / wall_ms):.1f}% idle; {spans} device spans); "
+            f"wrapper launches in the traced import {launched}; device time by name (us) "
+            f"{[(k, round(v, 1)) for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])][:8]}")
+        if lost:
+            raise SystemExit(f"the traced import [{route}] lacks kernels the wrappers launched: "
+                             f"{lost}")
+        if route == "device" and not launched.get("final_exp_hard_device"):
+            raise SystemExit("the traced import on the device route launched no row 9")
+    _final_exp_route(False)
+    chain = new_chain()
+    chain.slot_clock.set_slot(int(b0.slot))
+    log(f"host profile of one block import, top 5 by own time (ms): "
+        f"{host_top5(lambda: chain.process_block(blocks[0]))}")
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

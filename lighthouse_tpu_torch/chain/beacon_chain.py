@@ -1,12 +1,22 @@
-"""BeaconChain: the gossip attestation surface of a beacon node.
+"""BeaconChain: the gossip attestation surface and block import of a
+beacon node.
 
 Port of the attestation part of ``lighthouse_tpu/chain/beacon_chain.py``
 (:45-212, :749-955): an anchor state and its block root, the slot clock,
-fork choice's attestation side, the committee shuffle cache, the observed
-attesters, the naive aggregation pool and the validator monitor, and the
-batch pipeline of ``verify_attestations_for_gossip`` (prepare under the
-import lock, BLS outside it, commit under it again).  Block import, the
-store and the slasher come with block verification: ``slasher`` is None.
+fork choice, the committee shuffle cache, the observed attesters, the
+naive aggregation pool and the validator monitor, and the batch pipeline
+of ``verify_attestations_for_gossip`` (prepare under the import lock, BLS
+outside it, commit under it again).  And of block import (:212-260,
+:396-470): ``process_block`` runs the gossip stage, the signature batch
+(outside the lock), execution and ``import_block`` (fork choice's
+``on_block``, the block's attestations as votes, its attester slashings,
+the post-state kept by block root).  Not ported (ROADMAP A 15): the store
+(post-states live in a bounded in-memory map), the head recompute, the
+light client, events, the slasher (``slasher`` is None), the validator
+monitor's block hooks, and the execution layer: its check is skipped, as
+the JAX chain skips it when ``execution_layer`` is None.  A block that
+carries blob commitments raises ``NotImplementedError``: the blob
+availability check (``chain/blob_verification.py``) is not ported.
 
 The BLS backend is named per chain (``bls_backend``, ``cuda`` by default:
 the batch verifier on the card; ``reference`` is the host check), and
@@ -17,11 +27,14 @@ state root and the ``cuda`` backend run.
 from __future__ import annotations
 
 import threading
+import time
+from collections import OrderedDict
 
 import numpy as np
 
 from lighthouse_tpu_torch.chain import attestation_verification as att_verify
-from lighthouse_tpu_torch.chain.caches import EpochIndexedSeen, ShufflingCache
+from lighthouse_tpu_torch.chain import block_verification as bv
+from lighthouse_tpu_torch.chain.caches import EpochIndexedSeen, ShufflingCache, SlotIndexedSeen
 from lighthouse_tpu_torch.chain.validator_monitor import ValidatorMonitor
 from lighthouse_tpu_torch.common.slot_clock import ManualSlotClock
 from lighthouse_tpu_torch.crypto.bls import api as bls
@@ -29,6 +42,7 @@ from lighthouse_tpu_torch.device import resolve_device
 from lighthouse_tpu_torch.fork_choice import ForkChoice, ForkChoiceError
 from lighthouse_tpu_torch.pool.naive_aggregation import NaiveAggregationPool
 from lighthouse_tpu_torch.state_transition import misc
+from lighthouse_tpu_torch.state_transition.block_processing import get_attesting_indices
 from lighthouse_tpu_torch.state_transition.slot_processing import state_advance
 from lighthouse_tpu_torch.types import BeaconBlockHeader, make_types
 
@@ -47,6 +61,8 @@ def anchor_block_root(state, device=None) -> bytes:
 
 
 class BeaconChain:
+    POST_STATES = 16            # imported blocks' post-states kept in memory
+
     def __init__(self, spec, anchor_state, *, bls_backend: str = "cuda", device=None,
                  verify_signatures: bool = True):
         self.spec = spec
@@ -64,6 +80,10 @@ class BeaconChain:
         self.fork_choice = ForkChoice(spec, self.anchor_root, anchor_state)
         self.shuffling_cache = ShufflingCache()
         self.observed_attesters = EpochIndexedSeen()
+        self.observed_block_producers = SlotIndexedSeen()
+        # post-states of imported blocks by block root, most recent last
+        self._post_states: OrderedDict[bytes, object] = OrderedDict()
+        self.block_times: dict[bytes, dict] = {}
         self.naive_pool = NaiveAggregationPool()
         self.validator_monitor = ValidatorMonitor()
         self.slasher = None
@@ -101,8 +121,14 @@ class BeaconChain:
         return shuffle
 
     def state_for_block(self, block_root: bytes):
-        """Post-state of ``block_root``; the anchor is the only block yet."""
-        return self.head_state if block_root == self.anchor_root else None
+        """Post-state of ``block_root``: the anchor's, or an imported block's
+        while it is among the ``POST_STATES`` most recent."""
+        if block_root == self.anchor_root:
+            return self.head_state
+        return self._post_states.get(block_root)
+
+    def block_exists(self, block_root: bytes) -> bool:
+        return block_root == self.anchor_root or block_root in self._post_states
 
     def _attestation_state(self, item):
         """The state to check an attestation against: its head block's
@@ -197,3 +223,64 @@ class BeaconChain:
                                             target_epoch, slot)
         except ForkChoiceError:
             pass
+
+    # -- block import ---------------------------------------------------------
+
+    def process_block(self, signed_block, source: str = "gossip") -> bytes:
+        """Gossip checks, the signature batch, execution and import; returns
+        the block root.  The import lock is held for the gossip stage and
+        for execute-and-import; the signature batch runs between the two
+        holds.  ``block_times[root]`` gets the seconds of ``gossip``,
+        ``signatures``, ``copy``, ``advance``, ``transition``,
+        ``state_root``, ``import`` and ``total``."""
+        if len(signed_block.message.body.blob_kzg_commitments):
+            raise NotImplementedError(
+                "a block with blob commitments needs the blob availability check of "
+                "chain/blob_verification.py, which is not ported")
+        t0 = time.perf_counter()
+        with self._import_lock:
+            gossip = bv.verify_block_for_gossip(self, signed_block, source)
+        t1 = time.perf_counter()
+        sigv = bv.verify_block_signatures(self, gossip)
+        t2 = time.perf_counter()
+        with self._import_lock:
+            if self.block_exists(sigv.block_root):
+                raise bv.BlockError("duplicate")
+            pending = bv.execute_block(self, sigv)
+            t3 = time.perf_counter()
+            root = self.import_block(pending)
+        t4 = time.perf_counter()
+        self.block_times[root] = dict(gossip=t1 - t0, signatures=t2 - t1, **pending.timings,
+                                      **{"import": t4 - t3, "total": t4 - t0})
+        return root
+
+    def import_block(self, pending: bv.ExecutionPendingBlock) -> bytes:
+        """Fork choice's ``on_block``, the block's attestations as votes
+        and its attester slashings, then the post-state under the root."""
+        block = pending.signed_block.message
+        root = pending.block_root
+        state = pending.post_state
+        current_slot = max(self.current_slot(), int(block.slot))
+        is_timely = (int(block.slot) == self.slot_clock.current_slot()
+                     and self.slot_clock.is_timely_for_boost())
+        self.fork_choice.on_block(current_slot, block, root, state, is_timely=is_timely)
+        for att in block.body.attestations:
+            # an attestation fork choice refuses stays in the imported
+            # block, as in the JAX chain
+            try:
+                shuffle = self.committee_shuffle(state, int(att.data.target.epoch))
+                indices = get_attesting_indices(state, self.spec, att, shuffle)
+                self.fork_choice.on_attestation(
+                    current_slot, indices, bytes(att.data.beacon_block_root),
+                    int(att.data.target.epoch), int(att.data.slot), is_from_block=True)
+            except (ForkChoiceError, ValueError):
+                continue
+        for slashing in block.body.attester_slashings:
+            both = np.intersect1d(np.asarray(slashing.attestation_1.attesting_indices, np.int64),
+                                  np.asarray(slashing.attestation_2.attesting_indices, np.int64))
+            if both.size:
+                self.fork_choice.on_attester_slashing(both)
+        self._post_states[root] = state
+        while len(self._post_states) > self.POST_STATES:
+            self._post_states.popitem(last=False)
+        return root

@@ -1,10 +1,10 @@
-"""Chain caches of the attestation path: committee shuffles and the
-observed-attester bitmaps.
+"""Chain caches of the attestation and block paths: committee shuffles,
+the observed-attester bitmaps and the observed block producers.
 
-Port of ``ShufflingCache`` (:21) and ``EpochIndexedSeen`` (:106-160) of
-``lighthouse_tpu/chain/caches.py``.  Observed attesters are epoch-keyed
-boolean numpy columns over validator index, so a batch is one vectorised
-gather or scatter.
+Port of ``ShufflingCache`` (:21), ``EpochIndexedSeen`` (:106-160) and
+``SlotIndexedSeen`` (:161-180) of ``lighthouse_tpu/chain/caches.py``.
+Observed attesters are epoch-keyed boolean numpy columns over validator
+index, so a batch is one vectorised gather or scatter.
 """
 
 from __future__ import annotations
@@ -80,3 +80,26 @@ class EpochIndexedSeen:
         """The validator indices marked seen in ``epoch``."""
         bm = self._by_epoch.get(epoch)
         return np.zeros(0, np.int64) if bm is None else np.nonzero(bm)[0]
+
+
+class SlotIndexedSeen:
+    """(slot, validator index) pairs seen, slot-keyed: the observed block
+    producers that ``verify_block_for_gossip`` checks."""
+
+    def __init__(self, retained_slots: int = 64):
+        self.retained = retained_slots
+        self._by_slot: dict[int, set[int]] = {}
+
+    def observe(self, slot: int, index: int) -> bool:
+        """Mark (slot, index) seen; True if it already was."""
+        s = self._by_slot.setdefault(slot, set())
+        for old in [x for x in self._by_slot if x + self.retained < slot]:
+            del self._by_slot[old]
+        if index in s:
+            return True
+        s.add(index)
+        return False
+
+    def is_seen(self, slot: int, index: int) -> bool:
+        """Read-only probe, for the check before the proposer's signature."""
+        return index in self._by_slot.get(slot, ())

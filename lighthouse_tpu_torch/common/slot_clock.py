@@ -1,6 +1,7 @@
 """Slot clocks.
 
-Port of ``SlotClock`` (:12) and ``ManualSlotClock`` (:49) of
+Port of ``SlotClock`` (:12, with ``seconds_into_slot`` and
+``is_timely_for_boost``) and ``ManualSlotClock`` (:49) of
 ``lighthouse_tpu/common/slot_clock.py``.
 """
 
@@ -23,6 +24,14 @@ class SlotClock:
 
     def slot_start(self, slot: int) -> float:
         return self.genesis_time + slot * self.seconds_per_slot
+
+    def seconds_into_slot(self) -> float:
+        return self.now() - self.slot_start(self.current_slot())
+
+    def is_timely_for_boost(self, attestation_deadline_fraction: int = 3) -> bool:
+        """Within SECONDS_PER_SLOT / INTERVALS_PER_SLOT of the slot start
+        (the proposer-boost window)."""
+        return self.seconds_into_slot() < self.seconds_per_slot / attestation_deadline_fraction
 
 
 class ManualSlotClock(SlotClock):

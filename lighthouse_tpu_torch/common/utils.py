@@ -18,6 +18,10 @@ class LruCache:
         self._d: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
 
+    def clear(self) -> None:
+        with self._lock:
+            self._d.clear()
+
     def get(self, key):
         with self._lock:
             item = self._d.get(key)

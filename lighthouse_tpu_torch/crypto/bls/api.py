@@ -98,6 +98,17 @@ class PublicKey:
         return pk
 
     @staticmethod
+    def intern_decompressed(pks: Sequence["PublicKey"]) -> None:
+        """Make keys that already hold their points (made from their secret
+        scalars, so in G1 by construction) the interned objects of their
+        bytes: a node holds its registry's keys decompressed, and later
+        ``interned`` lookups skip the host decompression and [r]P check."""
+        for pk in pks:
+            if pk._point is None:
+                raise BlsError("intern_decompressed: key without its point")
+            _PK_INTERN.put(pk._bytes, pk)
+
+    @staticmethod
     def decompress_batch(pks: Sequence["PublicKey"]) -> bool:
         """Decompress and membership-check every not-yet-decompressed key
         in one native call each (``csrc/bls_host.cc``).  A key that fails

@@ -546,7 +546,7 @@ def _verify_batch(blobs, commitment_bytes_list, proof_bytes_list, settings, devi
         t0 = mark("fused", t0)
         if probe is not None:
             probe["f"] = f
-        ok = native_bls.final_exp_is_one(f)
+        ok = bls_backend.final_exp_is_one(f, device)
         mark("final_exp", t0)
         return ok
     # both MSMs padded to one lane count, as the JAX package pads them

@@ -23,6 +23,10 @@
 //                          msm.gather_fold_device)
 //   lh_g1_subgroup      -> ops/bls_backend.py:207 _g1_subgroup_kernel (wrapper
 //                          bls_backend.g1_subgroup_device)
+//   lh_final_exp_hard   -> ops/bls_backend.py:395 _final_exp_hard_jit over
+//                          ops/bls12_381.py:702 final_exp_hard_device (wrapper
+//                          bls12_381.final_exp_hard_device): the whole x-ladder
+//                          in one launch, one thread a lane
 //
 // Bound: 32-bit integer multiply-adds.  Every Fp product is a 12-word CIOS
 // Montgomery multiply (2*12^2 + 12 multiply-adds); the data moved is a few
@@ -118,6 +122,11 @@ __global__ void k_blinded_final(long n, const u32* X, const u32* Y, const u32* Z
     if (g < n) lane_blinded_final(g, X, Y, Z, ux, uy, xa, ya, inf);
 }
 
+__global__ void k_final_exp_hard(long n, const u32* in, u32* out) {
+    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) lane_final_exp_hard(i, in, out);
+}
+
 inline cudaStream_t S(void* s) { return reinterpret_cast<cudaStream_t>(s); }
 
 }  // namespace
@@ -201,6 +210,13 @@ int lh_g1_affine(const u32* X, const u32* Y, const u32* Z, u32* xa, u32* ya, uin
 // affine G1 lanes xp, yp [n, 12] -> membership verdict out [n]
 int lh_g1_subgroup(const u32* xp, const u32* yp, uint8_t* out, long long n, void* stream) {
     k_g1_subgroup<<<blocks(n), kBlock, 0, S(stream)>>>(n, xp, yp, out);
+    return (int)cudaGetLastError();
+}
+
+// cyclotomic Fq12 rows [n, 12, 12] -> (m^((p^4 - p^2 + 1)/r))^3 rows [n, 12, 12];
+// 32-thread blocks: the lanes are few and each is one long chain
+int lh_final_exp_hard(const u32* in, u32* out, long long n, void* stream) {
+    k_final_exp_hard<<<(unsigned)((n + 31) / 32), 32, 0, S(stream)>>>(n, in, out);
     return (int)cudaGetLastError();
 }
 

@@ -941,4 +941,163 @@ __device__ __forceinline__ void lane_g1_subgroup(long i, const u32* xp, const u3
     out[i] = fp_is_zero(d1) && fp_is_zero(d2) && !fp_is_zero(T.Z);
 }
 
+// ---- row 9: the hard part of the final exponentiation ------------------------
+//
+// (m^((p^4 - p^2 + 1)/r))^3 for a cyclotomic m, the x-ladder of
+// ops/bls12_381.py:702 final_exp_hard_device (JAX package) with its host
+// oracle crypto/bls/fields.final_exp_hard: five m^x exponentiations, a few
+// Fq12 products and the Frobenius maps p, p^2, p^3.
+
+// gamma_k = xi^(k (p-1)/6), k = 1..5 (Montgomery), the Frobenius twists
+__constant__ u32 FROB_G_W[5][2][12] = {
+    {{0xb319d465u, 0x07089552u, 0xb50a8313u, 0xc6695f92u, 0xd117228fu, 0x97e83cccu,
+      0xb2dc29eeu, 0xa35baecau, 0x5daace4du, 0x1ce393eau, 0xb0fb66ebu, 0x08f2220fu},
+     {0x4ce5d646u, 0xb2f66aadu, 0xfc497cecu, 0x5842a06bu, 0x2599d394u, 0xcf4895d4u,
+      0x40a8e8d0u, 0xc11b9cbau, 0xe5a0de89u, 0x2e3813cbu, 0x88847fafu, 0x110eefdau}},
+    {{0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
+      0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u},
+     {0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u, 0xd3851b95u, 0x587042afu,
+      0x01bacb9eu, 0x8eb60ebeu, 0x83d050d2u, 0x03f97d6eu, 0x54638741u, 0x18f02065u}},
+    {{0x5aa30fdau, 0x7bcfa7a2u, 0x2a927e7cu, 0xdc17dec1u, 0x6b4ebef1u, 0x2f088dd8u,
+      0xda74d4a7u, 0xd1ca2087u, 0x96cebc1du, 0x2da25966u, 0xbbfd87d2u, 0x0e2b7eedu},
+     {0x5aa30fdau, 0x7bcfa7a2u, 0x2a927e7cu, 0xdc17dec1u, 0x6b4ebef1u, 0x2f088dd8u,
+      0xda74d4a7u, 0xd1ca2087u, 0x96cebc1du, 0x2da25966u, 0xbbfd87d2u, 0x0e2b7eedu}},
+    {{0x867545c3u, 0x890dc9e4u, 0x3285a5d5u, 0x2af32253u, 0x309b7e2cu, 0x50880866u,
+      0x7e881024u, 0xa20d1b8cu, 0xe2db9068u, 0x14e4f04fu, 0x1564853au, 0x14e56d3fu},
+     {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
+      0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u}},
+    {{0x0dbce43fu, 0x82d83cf5u, 0xdf9d018fu, 0xa2813e53u, 0x3c65e181u, 0xc6f0caa5u,
+      0x8d50fe95u, 0x7525cf52u, 0xf4798a6bu, 0x4a85ed50u, 0x6cf8eebdu, 0x171da0fdu},
+     {0xf242c66cu, 0x3726c30au, 0xd1b6fe70u, 0x7c2ac1aau, 0xba4b14a2u, 0xa04007fbu,
+      0x66341429u, 0xef517c32u, 0x4ed2226bu, 0x0095ba65u, 0xcc86f7ddu, 0x02e370ecu}}};
+
+// (a + bu)^2 = (a + b)(a - b) + 2ab u: 2 Fp products
+__device__ __noinline__ void fp2_sqr(Fp2& r, const Fp2& x) {
+    Fp s, d, ab;
+    fp_add(s, x.c[0], x.c[1]);
+    fp_sub(d, x.c[0], x.c[1]);
+    fp_mul(ab, x.c[0], x.c[1]);
+    fp_mul(r.c[0], s, d);
+    fp_add(r.c[1], ab, ab);
+}
+
+// 3a - 2g (sub) or 3a + 2g (add): the Granger-Scott output combination
+__device__ __forceinline__ void gs_out(Fp2& z, const Fp2& a, const Fp2& g, bool add) {
+    Fp2 t;
+    if (add) fp2_add(t, a, g);
+    else fp2_sub(t, a, g);
+    fp2_add(t, t, t);
+    fp2_add(z, t, a);
+}
+
+// Granger-Scott squaring of a cyclotomic element (JAX fp12_cyclotomic_sqr,
+// ops/bls12_381.py:649): coefficients x = (g0, g1, g2) + (g3, g4, g5) w,
+// 9 Fp2 squarings.  Wrong for an element outside the cyclotomic subgroup.
+__device__ __noinline__ void fp12_cyclotomic_sqr(Fp12& r, const Fp12& x) {
+    const Fp2 &g0 = x.c[0].c[0], &g1 = x.c[0].c[1], &g2 = x.c[0].c[2];
+    const Fp2 &g3 = x.c[1].c[0], &g4 = x.c[1].c[1], &g5 = x.c[1].c[2];
+    Fp2 t0, t1, t2, t3, t4, t5, t6, t7, t8, s, a0, a2, a4;
+    fp2_sqr(t0, g4);
+    fp2_sqr(t1, g0);
+    fp2_add(s, g4, g0);
+    fp2_sqr(t6, s);
+    fp2_sub(t6, t6, t0);
+    fp2_sub(t6, t6, t1);                    // 2 g0 g4
+    fp2_sqr(t2, g2);
+    fp2_sqr(t3, g3);
+    fp2_add(s, g2, g3);
+    fp2_sqr(t7, s);
+    fp2_sub(t7, t7, t2);
+    fp2_sub(t7, t7, t3);                    // 2 g2 g3
+    fp2_sqr(t4, g5);
+    fp2_sqr(t5, g1);
+    fp2_add(s, g5, g1);
+    fp2_sqr(t8, s);
+    fp2_sub(t8, t8, t4);
+    fp2_sub(t8, t8, t5);
+    fp2_mul_xi(t8, t8);                     // 2 g1 g5 xi
+    fp2_mul_xi(a0, t0);
+    fp2_add(a0, a0, t1);                    // g4^2 xi + g0^2
+    fp2_mul_xi(a2, t2);
+    fp2_add(a2, a2, t3);
+    fp2_mul_xi(a4, t4);
+    fp2_add(a4, a4, t5);
+    Fp12 z;
+    gs_out(z.c[0].c[0], a0, g0, false);
+    gs_out(z.c[0].c[1], a2, g1, false);
+    gs_out(z.c[0].c[2], a4, g2, false);
+    gs_out(z.c[1].c[0], t8, g3, true);
+    gs_out(z.c[1].c[1], t6, g4, true);
+    gs_out(z.c[1].c[2], t7, g5, true);
+    r = z;
+}
+
+__device__ __forceinline__ void frob_gamma(Fp2& g, int k) {
+    for (int w = 0; w < 12; w++) {
+        g.c[0].w[w] = FROB_G_W[k - 1][0][w];
+        g.c[1].w[w] = FROB_G_W[k - 1][1][w];
+    }
+}
+
+// f^(p^n) (JAX fp12_frobenius, ops/bls12_381.py:631): n rounds of
+// coefficient conjugation and the gamma twists, 5 Fp2 products a round
+__device__ __noinline__ void fp12_frobenius(Fp12& r, const Fp12& f, int n) {
+    Fp12 x = f;
+    Fp2 g, c;
+#pragma unroll 1
+    for (int i = 0; i < n; i++) {
+        fp2_conj(x.c[0].c[0], x.c[0].c[0]);
+        const int ks[5] = {2, 4, 1, 3, 5};      // a1, a2, b0, b1, b2
+        for (int j = 0; j < 5; j++) {
+            Fp2& e = x.c[(j + 1) / 3].c[(j + 1) % 3];
+            frob_gamma(g, ks[j]);
+            fp2_conj(c, e);
+            fp2_mul(e, c, g);
+        }
+    }
+    r = x;
+}
+
+// f^x for the negative curve parameter x, f cyclotomic (JAX _cyc_exp_x,
+// ops/bls12_381.py:687): a cyclotomic squaring per bit of |x| after the
+// top one, a product on the 5 set bits (the kernel branches on the public
+// constant where the JAX program multiplies on every bit and selects:
+// same values), then the conjugation for the sign
+__device__ __noinline__ void cyc_exp_x(Fp12& r, const Fp12& f) {
+    Fp12 out = f;
+#pragma unroll 1
+    for (int b = 62; b >= 0; b--) {
+        fp12_cyclotomic_sqr(out, out);
+        if ((BLS_X_ABS >> b) & 1) fp12_mul(out, out, f);
+    }
+    fp12_conj(r, out);
+}
+
+// lane i of Fq12 rows [N, 12, 12]: out = (m^((p^4 - p^2 + 1)/r))^3
+__device__ __forceinline__ void lane_final_exp_hard(long i, const u32* in, u32* out) {
+    Fp12 m, t1, a, g3, g2, g1, g0;
+    ld(m, in, i);
+    cyc_exp_x(t1, m);                       // m^x
+    cyc_exp_x(g3, t1);
+    fp12_cyclotomic_sqr(a, t1);
+    fp12_conj(a, a);
+    fp12_mul(g3, g3, a);
+    fp12_mul(g3, g3, m);                    // m^(x^2 - 2x + 1)
+    cyc_exp_x(g2, g3);                      // m^(x c3)
+    cyc_exp_x(g1, g2);
+    fp12_conj(a, g3);
+    fp12_mul(g1, g1, a);                    // m^(x c2 - c3)
+    cyc_exp_x(g0, g1);
+    fp12_cyclotomic_sqr(a, m);
+    fp12_mul(g0, g0, a);
+    fp12_mul(g0, g0, m);                    // m^(x c1 + 3)
+    fp12_frobenius(a, g1, 1);
+    fp12_mul(g0, g0, a);
+    fp12_frobenius(a, g2, 2);
+    fp12_mul(g0, g0, a);
+    fp12_frobenius(a, g3, 3);
+    fp12_mul(g0, g0, a);
+    st(out, i, g0);
+}
+
 }  // namespace bls

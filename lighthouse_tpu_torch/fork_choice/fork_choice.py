@@ -1,24 +1,42 @@
-"""Fork choice's attestation side: the store anchored at a state, the
-clock, and the LMD vote columns.
+"""Fork choice: the store anchored at a state, the clock, block insertion
+with the justified, finalized and unrealized checkpoints, and the LMD vote
+columns.
 
 Port of the part of ``lighthouse_tpu/fork_choice/fork_choice.py`` that the
-gossip attestation path runs: ``ForkChoice`` built from an anchor (:50-131),
-``update_time`` and ``_dequeue`` (:144-154), ``on_attestation`` and
-``_apply_attestation`` (:262-304).  Votes are three numpy columns over
-validator index (vote node, vote epoch, equivocation), so a batch of
-attesters is one vectorised scatter.  ``on_block``, ``get_head`` and the
-justified and finalized checkpoints come with block import.
+gossip attestation path and block import run: ``ForkChoice`` built from an
+anchor (:50-131), ``update_time`` with the epoch tick's pull-up and
+``_dequeue`` (:133-154), ``on_block`` with ``_compute_unrealized`` and
+``_update_checkpoints`` (:155-262), ``on_attestation`` and
+``_apply_attestation`` (:262-304), ``on_attester_slashing`` (:305).  Votes
+are three numpy columns over validator index (vote node, vote epoch,
+equivocation), so a batch of attesters is one vectorised scatter.  The
+head (``get_head``, vote deltas, balance snapshots) is not ported
+(ROADMAP A 15).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from lighthouse_tpu_torch.fork_choice.proto_array import NONE, ProtoArray
+from lighthouse_tpu_torch.fork_choice.proto_array import (
+    EXEC_IRRELEVANT,
+    NONE,
+    CheckpointKey,
+    ProtoArray,
+)
+from lighthouse_tpu_torch.state_transition import misc
+from lighthouse_tpu_torch.state_transition.epoch_processing import (
+    process_justification_and_finalization,
+)
+from lighthouse_tpu_torch.types import GENESIS_EPOCH
 
 
 class ForkChoiceError(ValueError):
     pass
+
+
+def _ckpt(cp) -> CheckpointKey:
+    return CheckpointKey(int(cp.epoch), bytes(cp.root))
 
 
 class QueuedAttestation:
@@ -36,12 +54,27 @@ class ForkChoice:
         self.spec = spec
         self.proto = ProtoArray()
         self.time_slot = int(anchor_state.slot)
+        anchor_cp = CheckpointKey(spec.compute_epoch_at_slot(int(anchor_state.slot)), anchor_root)
+        jc, fc = anchor_state.current_justified_checkpoint, anchor_state.finalized_checkpoint
+        self.justified = _ckpt(jc) if int(jc.epoch) else anchor_cp
+        self.finalized = _ckpt(fc) if int(fc.epoch) else anchor_cp
+        # the anchor must be findable by the justified and finalized roots
+        if self.justified.root != anchor_root:
+            self.justified = anchor_cp
+        if self.finalized.root != anchor_root:
+            self.finalized = anchor_cp
         nv = len(anchor_state.validators)
         self._vote_next = np.full(nv, NONE, np.int32)
         self._vote_next_epoch = np.full(nv, -1, np.int64)      # -1: no vote yet
         self.equivocating = np.zeros(nv, bool)
+        self.proposer_boost_root: bytes | None = None
         self._queued: list[QueuedAttestation] = []
-        self.proto.add_block(anchor_root, None, int(anchor_state.slot))
+        # best unrealized checkpoints seen this epoch, pulled into the store
+        # at the next epoch tick
+        self._best_unrealized_j = self.justified
+        self._best_unrealized_f = self.finalized
+        self.proto.add_block(anchor_root, None, int(anchor_state.slot), self.justified,
+                             self.finalized, execution_status=EXEC_IRRELEVANT)
 
     def _grow_votes(self, n: int):
         pad = n - self._vote_next.shape[0]
@@ -63,7 +96,11 @@ class ForkChoice:
 
     def update_time(self, current_slot: int) -> None:
         if current_slot > self.time_slot:
+            prev_epoch = self.spec.compute_epoch_at_slot(self.time_slot)
             self.time_slot = current_slot
+            self.proposer_boost_root = None     # the boost lasts one slot
+            if self.spec.compute_epoch_at_slot(current_slot) > prev_epoch:
+                self._update_checkpoints(self._best_unrealized_j, self._best_unrealized_f)
             self._dequeue(current_slot)
 
     def _dequeue(self, current_slot: int):
@@ -74,6 +111,77 @@ class ForkChoice:
             else:
                 still.append(q)
         self._queued = still
+
+    # -- blocks ---------------------------------------------------------------
+
+    def on_block(self, current_slot: int, block, block_root: bytes, state,
+                 execution_status: int = EXEC_IRRELEVANT, is_timely: bool = False) -> None:
+        """Insert an imported block under ``block_root`` as a child of its
+        parent; ``state`` is its post-state, from which the unrealized
+        checkpoints are weighed (on the live participation, then restored)."""
+        spec = self.spec
+        self.update_time(max(current_slot, self.time_slot))
+        slot = int(block.slot)
+        if block_root in self.proto:
+            return
+        parent_root = bytes(block.parent_root)
+        if parent_root not in self.proto:
+            raise ForkChoiceError(f"unknown parent {parent_root.hex()[:16]}")
+        if slot > current_slot:
+            raise ForkChoiceError("block from the future")
+        fin_slot = spec.compute_start_slot_at_epoch(self.finalized.epoch)
+        if slot <= fin_slot:
+            raise ForkChoiceError("block slot not beyond finalized slot")
+        if self.proto.get_ancestor(parent_root, fin_slot) != self.finalized.root:
+            raise ForkChoiceError("block does not descend from finalized root")
+
+        justified = _ckpt(state.current_justified_checkpoint)
+        finalized = _ckpt(state.finalized_checkpoint)
+        unrealized_j, unrealized_f = self._compute_unrealized(state, justified, finalized)
+        if spec.compute_epoch_at_slot(slot) < spec.compute_epoch_at_slot(current_slot):
+            # blocks of a past epoch take their unrealized checkpoints at once
+            node_j, node_f = unrealized_j, unrealized_f
+        else:
+            node_j, node_f = justified, finalized
+        self._update_checkpoints(node_j, node_f)
+        if unrealized_j.epoch > self._best_unrealized_j.epoch:
+            self._best_unrealized_j = unrealized_j
+        if unrealized_f.epoch > self._best_unrealized_f.epoch:
+            self._best_unrealized_f = unrealized_f
+        self._grow_votes(len(state.validators))
+        if is_timely and slot == current_slot and self.proposer_boost_root is None:
+            self.proposer_boost_root = block_root
+        self.proto.add_block(block_root, parent_root, slot, node_j, node_f, unrealized_j,
+                             unrealized_f, execution_status)
+
+    def _compute_unrealized(self, state, justified, finalized):
+        if misc.current_epoch(state, self.spec) <= GENESIS_EPOCH + 1:
+            return justified, finalized
+        snap = (state.previous_justified_checkpoint, state.current_justified_checkpoint,
+                state.finalized_checkpoint, list(state.justification_bits))
+        try:
+            process_justification_and_finalization(state, self.spec)
+            uj = _ckpt(state.current_justified_checkpoint)
+            uf = _ckpt(state.finalized_checkpoint)
+        finally:
+            (state.previous_justified_checkpoint, state.current_justified_checkpoint,
+             state.finalized_checkpoint) = snap[:3]
+            state.justification_bits = snap[3]
+        return uj, uf
+
+    def _update_checkpoints(self, justified: CheckpointKey, finalized: CheckpointKey) -> None:
+        if justified.epoch > self.justified.epoch:
+            self.justified = justified
+        if finalized.epoch > self.finalized.epoch:
+            self.finalized = finalized
+
+    def on_attester_slashing(self, attesting_indices: np.ndarray) -> None:
+        """Zero equivocating validators out of fork choice for good."""
+        idx = np.asarray(attesting_indices, np.int64)
+        if idx.size == 0:
+            return
+        self._grow_votes(int(idx.max()) + 1)
+        self.equivocating[idx] = True
 
     # -- attestations ---------------------------------------------------------
 

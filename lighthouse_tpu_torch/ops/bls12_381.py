@@ -26,6 +26,13 @@ exponentiation.
 (``lh_miller`` with Zp = Zq = 1, then one ``lh_fq12_mul_halves`` launch per
 tree level; ``csrc/bls12_381.cu``), under ``multi_pairing_device``.  Bound:
 Fp products (``bls_cuda.miller_reduce_fp_muls``).
+
+``final_exp_hard_device`` is the kernel wrapper of row 9, the hard part of
+the final exponentiation (``lh_final_exp_hard``: the whole x-ladder in one
+launch, one thread a lane), with ``final_exp_hard_plain`` beside it: the
+Granger-Scott cyclotomic squaring, the Frobenius maps and the x-ladder of
+``lighthouse_tpu/ops/bls12_381.py:631-714``.  Bound: Fp products
+(``bls_cuda.FINAL_EXP_HARD_LANE`` a lane).
 """
 
 from __future__ import annotations
@@ -461,3 +468,125 @@ def multi_pairing_device(pairs, device=None):
     f = miller_reduce_device(*(bi.to_tensor(c, dev) for c in (xp, yp, xq, yq)),
                              torch.from_numpy(mask).to(dev))
     return native_bls.final_exp(fq12_from_words(bi.to_numpy(f)))
+
+
+# --------------------------------------------------------------------------
+# row 9: the hard part of the final exponentiation
+# --------------------------------------------------------------------------
+
+def _fp2_mul_xi(x: torch.Tensor) -> torch.Tensor:
+    """x·ξ with ξ = 1 + u: (a - b) + (a + b)u."""
+    a, b = x[..., 0, :], x[..., 1, :]
+    return torch.stack([bi.sub(a, b), bi.add(a, b)], -2)
+
+
+_GAMMAS: dict = {}
+
+
+def _frobenius_twists(device) -> torch.Tensor:
+    """The Frobenius twist of each Fp12 coefficient [2, 3, 2, 12]: one for
+    c0.c0, then γ2, γ4 (c0.c1, c0.c2) and γ1, γ3, γ5 (c1), with
+    γ_k = ξ^(k(p-1)/6) (``fields._frob_gamma``)."""
+    key = str(device)
+    t = _GAMMAS.get(key)
+    if t is None:
+        from lighthouse_tpu_torch.crypto.bls.fields import _frob_gamma
+
+        g = _frob_gamma()
+        order = (0, 2, 4, 1, 3, 5)          # g[0] = ξ^0 = 1
+        words = bi.ints_to_mont_limbs([c for k in order for c in (g[k].a, g[k].b)])
+        t = bi.u64(bi.to_tensor(words, device)).reshape(2, 3, 2, bi.L)
+        _GAMMAS[key] = t
+    return t
+
+
+def fp12_frobenius(f: torch.Tensor, n: int = 1) -> torch.Tensor:
+    """f^(p^n): n rounds of coefficient conjugation and the γ twists
+    (``fields.frobenius``; JAX ``fp12_frobenius``, ops/bls12_381.py:631)."""
+    g = _frobenius_twists(f.device)
+    for _ in range(n):
+        f = fp2_mul(fp2_conj(f), g)
+    return f
+
+
+def fp12_cyclotomic_sqr(x: torch.Tensor) -> torch.Tensor:
+    """Granger-Scott squaring (JAX ``fp12_cyclotomic_sqr``,
+    ops/bls12_381.py:649): right only for cyclotomic-subgroup elements.
+    Coefficients x = (g0, g1, g2) + (g3, g4, g5)·w; the nine Fp2 squares
+    run as one stacked product."""
+    g0, g1, g2 = x[..., 0, 0, :, :], x[..., 0, 1, :, :], x[..., 0, 2, :, :]
+    g3, g4, g5 = x[..., 1, 0, :, :], x[..., 1, 1, :, :], x[..., 1, 2, :, :]
+    s = torch.stack([g4, g0, fp2_add(g4, g0), g2, g3, fp2_add(g2, g3),
+                     g5, g1, fp2_add(g5, g1)])
+    t0, t1, s04, t2, t3, s23, t4, t5, s51 = fp2_mul(s, s)
+    t6 = fp2_sub(fp2_sub(s04, t0), t1)                      # 2 g0 g4
+    t7 = fp2_sub(fp2_sub(s23, t2), t3)                      # 2 g2 g3
+    t8 = _fp2_mul_xi(fp2_sub(fp2_sub(s51, t4), t5))        # 2 g1 g5 ξ
+    a0 = fp2_add(_fp2_mul_xi(t0), t1)
+    a2 = fp2_add(_fp2_mul_xi(t2), t3)
+    a4 = fp2_add(_fp2_mul_xi(t4), t5)
+
+    def out(a, g, op):
+        return fp2_add(fp2_scale(op(a, g), 2), a)
+
+    z = [out(a0, g0, fp2_sub), out(a2, g1, fp2_sub), out(a4, g2, fp2_sub),
+         out(t8, g3, fp2_add), out(t6, g4, fp2_add), out(t7, g5, fp2_add)]
+    return torch.stack([torch.stack(z[:3], -3), torch.stack(z[3:], -3)], -4)
+
+
+def cyc_exp_x(f: torch.Tensor) -> torch.Tensor:
+    """f^x for the negative curve parameter x, f cyclotomic (JAX
+    ``_cyc_exp_x``, ops/bls12_381.py:687): a cyclotomic square per bit of
+    |x| after the top one and a product on the set bits, then the
+    conjugation for the sign.  The JAX program multiplies on every bit and
+    selects; branching on the public constant gives the same values."""
+    out = f
+    for bit in X_BITS:
+        out = fp12_cyclotomic_sqr(out)
+        if bit:
+            out = fp12_mul(out, f)
+    return fp12_conj(out)
+
+
+def final_exp_hard_nested(m: torch.Tensor) -> torch.Tensor:
+    """(m^((p^4 - p^2 + 1)/r))^3 of cyclotomic m [..., 2, 3, 2, 12] (int64
+    words), the composition of JAX ``final_exp_hard_device``
+    (ops/bls12_381.py:702) and of the host oracle ``fields.final_exp_hard``."""
+    t1 = cyc_exp_x(m)                                                    # m^x
+    g3 = fp12_mul(fp12_mul(cyc_exp_x(t1), fp12_conj(fp12_cyclotomic_sqr(t1))), m)
+    g2 = cyc_exp_x(g3)
+    g1 = fp12_mul(cyc_exp_x(g2), fp12_conj(g3))
+    g0 = fp12_mul(fp12_mul(cyc_exp_x(g1), fp12_cyclotomic_sqr(m)), m)
+    out = fp12_mul(g0, fp12_frobenius(g1, 1))
+    out = fp12_mul(out, fp12_frobenius(g2, 2))
+    return fp12_mul(out, fp12_frobenius(g3, 3))
+
+
+def final_exp_hard_plain(m: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``final_exp_hard_device``: int32 Fq12 rows
+    [N, 12, 12] in and out."""
+    return bi.i32(fq12_flat(final_exp_hard_nested(fq12_nested(bi.u64(m)))))
+
+
+def final_exp_hard_device(m: torch.Tensor) -> torch.Tensor:
+    """Row 9: the hard part of the final exponentiation of N cyclotomic
+    Fq12 lanes, int32 Montgomery rows [N, 12, 12] -> [N, 12, 12].  One
+    ``lh_final_exp_hard`` launch (the whole ladder, one thread a lane).
+    Replaces ``lighthouse_tpu/ops/bls_backend.py:395`` ``_final_exp_hard_jit``
+    over ``ops/bls12_381.py:702`` ``final_exp_hard_device``.  A lane outside
+    the cyclotomic subgroup gives a meaningless value, as in the JAX
+    package: callers pass ``fields.final_exp_easy`` of their product."""
+    from lighthouse_tpu_torch.ops import bls_cuda
+
+    bls_cuda.check(m, (12, bi.L), "final_exp_hard m")
+    if m.dim() != 3:
+        raise ValueError(f"final_exp_hard: expected rows [N, 12, 12], got {list(m.shape)}")
+    if m.device.type == "cpu":
+        return final_exp_hard_plain(m)
+    out = torch.empty_like(m)
+    bls_cuda.launch("lh_final_exp_hard", m, out, m.shape[0])
+    final_exp_hard_device.launches += 1
+    return out
+
+
+final_exp_hard_device.launches = 0

@@ -9,7 +9,8 @@ check
 Division of labour, as in the JAX package:
 
 - host: native C++ decompression and final exponentiation
-  (``csrc/bls_host.cc``), the random scalars and blinding points (from
+  (``csrc/bls_host.cc``; ``final_exp_is_one`` routes the hard part to the
+  card under ``LHGPU_DEVICE_FINAL_EXP=1``), the random scalars and blinding points (from
   ``secrets``: a predictable generator would let an attacker forge a
   batch), hash-to-G2 in Python (memoized), and the lane layout;
 - card, per chunk, ``pipeline_device`` (``lh_bls_pipeline``): the joint
@@ -32,6 +33,7 @@ back to the host or to the plain versions on a CUDA device.  On the CPU
 
 from __future__ import annotations
 
+import os
 import secrets
 import threading
 import time
@@ -242,6 +244,45 @@ def batch_subgroup_check_g1(points, device=None) -> np.ndarray:
 
 
 KERNELS = (pipeline_device, g2_subgroup_device, msm.blinded_fold_device, dp.fq12_mul_device)
+
+
+# --------------------------------------------------------------------------
+# the final exponentiation route (row 9)
+# --------------------------------------------------------------------------
+
+def device_final_exp() -> bool:
+    """``LHGPU_DEVICE_FINAL_EXP``: ``1`` sends the hard part of the final
+    exponentiation to row 9 on the card; unset or ``0`` keeps the native
+    host final exponentiation (``csrc/bls_host.cc``)."""
+    env = os.environ.get("LHGPU_DEVICE_FINAL_EXP", "0")
+    if env not in ("0", "1"):
+        raise ValueError(f"LHGPU_DEVICE_FINAL_EXP={env!r}: use 0 or 1")
+    return env == "1"
+
+
+def final_exp_is_one(f, device) -> bool:
+    """Is the full final exponentiation of the Fq12 product ``f`` one?
+
+    Port of ``_final_exp_is_one`` (``lighthouse_tpu/ops/bls_backend.py:419``),
+    with one routing difference: the JAX package takes its native library
+    first when it is present, then host Python, then the device ladder; the
+    port always builds its native library, so here ``LHGPU_DEVICE_FINAL_EXP=1``
+    outranks it.  On that route the easy part runs on the host
+    (``fields.final_exp_easy``, one inversion), the hard part on ``device``
+    (``final_exp_hard_device``: row 9 on the card, its plain version on the
+    CPU), and the result is compared with one.  A fault of row 9, or a
+    result that is not a canonical field element, raises: nothing falls
+    back to the native or Python path."""
+    from lighthouse_tpu_torch.crypto.bls.fields import Fq12, final_exp_easy
+
+    if not device_final_exp():
+        return native_bls.final_exp_is_one(f)
+    m = final_exp_easy(f)
+    out = t12.final_exp_hard_device(bi.to_tensor(t12.fq12_to_words(m)[None], device))
+    words = bi.to_numpy(out)
+    if not all(bi.words_to_int(row) < bi.P_INT for row in words.reshape(12, bi.L)):
+        raise RuntimeError("final_exp_hard: the card returned a non-canonical field element")
+    return t12.fq12_from_words(words) == Fq12.ONE
 
 
 def reset_launches() -> None:
@@ -533,7 +574,7 @@ def _verify_sets_pipeline(sets, ledger=None, chunk_size=None, *, device, scalars
     if not verdict.commit():
         return False
     f = dp.fq12_row_to_host(dp.combine_partials(partials))
-    ok = native_bls.final_exp_is_one(f)
+    ok = final_exp_is_one(f, device)
     mark("final_exp", t0)
     return ok
 

@@ -7,7 +7,9 @@ their JAX counterparts: on the batch-verify path
 ``bls_backend.pipeline_device`` and ``bls_backend.g2_subgroup_device``,
 ``msm.blinded_fold_device`` and ``dispatch_pipeline.fq12_mul_device``; on
 the attestation ingest path ``msm.gather_fold_device``; on the trusted-setup
-load ``bls_backend.g1_subgroup_device``; on the KZG path ``fr.fr_to_mont_device``, ``fr.eval_device``,
+load ``bls_backend.g1_subgroup_device``; on the final exponentiation's
+device route ``bls12_381.final_exp_hard_device``; on the KZG path
+``fr.fr_to_mont_device``, ``fr.eval_device``,
 ``msm.fold_device``, ``bls12_381.miller_reduce_device`` and
 ``kzg.kzg_fused_device``.
 Each checks its tensors here, launches on the current CUDA stream, raises
@@ -42,6 +44,7 @@ _SIGNATURES = {
         "lh_g1_gather_scalar_mul": (7, 2),
         "lh_g1_affine": (6, 1),
         "lh_g1_subgroup": (3, 1),
+        "lh_final_exp_hard": (2, 1),
     },
     "kzg": {                                  # csrc/kzg.cu
         "lh_fr_to_mont": (2, 1),
@@ -80,6 +83,17 @@ _R_MINUS_1 = GROUP_R - 1
 # later set bit, then the residues' 4 products
 G1_SUBGROUP_LANE = ((_R_MINUS_1.bit_length() - 1) * JAC_DOUBLE
                     + (bin(_R_MINUS_1).count("1") - 1) * 11 + 4)
+
+
+# row 9, one lane: five x-ladders (63 cyclotomic squares of 9 Fp2 squares
+# of 2 products, a product on each of the 5 set bits below the top one),
+# the cyclotomic squares of m^x and m, 8 more Fq12 products, and 1 + 2 + 3
+# Frobenius rounds of 5 Fp2 products
+FP2_SQR = 2
+CYC_SQR = 9 * FP2_SQR
+CYC_EXP_X = 63 * CYC_SQR + _X_ADDS * FP12_MUL
+FROBENIUS_ROUND = 5 * FP2_MUL
+FINAL_EXP_HARD_LANE = 5 * CYC_EXP_X + 2 * CYC_SQR + 8 * FP12_MUL + 6 * FROBENIUS_ROUND
 
 
 def _track_fp_muls(digits: np.ndarray) -> np.ndarray:

@@ -2,7 +2,8 @@
 sets, churn, committees and the next sync committee.
 
 Port of the part of ``lighthouse_tpu/state_transition/misc.py`` that epoch
-processing, the committee shuffle and attestation signing roots use.  The shuffle of a whole epoch's
+processing, the committee shuffle, attestation signing roots and block
+processing use (proposer selection, deposit branches).  The shuffle of a whole epoch's
 active set (``compute_committee_shuffle``) runs on the card through
 ``state_transition.shuffle``.
 """
@@ -138,6 +139,32 @@ def get_beacon_committee(state, spec: ChainSpec, slot: int, index: int,
     return shuffled[start:end]
 
 
+def compute_proposer_index(state, spec: ChainSpec, indices: np.ndarray, seed: bytes) -> int:
+    """Rejection-sample a proposer weighted by effective balance (host
+    swap-or-not per candidate, as in the JAX package)."""
+    if indices.shape[0] == 0:
+        raise ValueError("no active validators")
+    max_eb = spec.max_effective_balance
+    total = indices.shape[0]
+    i = 0
+    while True:
+        cand = int(indices[compute_shuffled_index(
+            i % total, total, seed, spec.preset.shuffle_round_count)])
+        rand = hashlib.sha256(seed + (i // 32).to_bytes(8, "little")).digest()[i % 32]
+        if int(state.validators.effective_balance[cand]) * 255 >= max_eb * rand:
+            return cand
+        i += 1
+
+
+def get_beacon_proposer_index(state, spec: ChainSpec, slot: int | None = None) -> int:
+    s = int(state.slot) if slot is None else slot
+    epoch = spec.compute_epoch_at_slot(s)
+    seed = hashlib.sha256(
+        get_seed(state, spec, epoch, spec.domain_beacon_proposer) + s.to_bytes(8, "little")
+    ).digest()
+    return compute_proposer_index(state, spec, get_active_validator_indices(state, epoch), seed)
+
+
 def get_next_sync_committee_indices(state, spec: ChainSpec) -> list[int]:
     """The spec's balance-weighted sample of the next period's sync
     committee (scalar shuffled indices, as in the JAX package)."""
@@ -174,3 +201,22 @@ def get_next_sync_committee(state, spec: ChainSpec):
 
 def integer_squareroot(n: int) -> int:
     return math.isqrt(n)
+
+
+def is_valid_merkle_branch(leaf: bytes, branch: list[bytes], depth: int, index: int,
+                           root: bytes) -> bool:
+    value = leaf
+    for i in range(depth):
+        if (index >> i) & 1:
+            value = hashlib.sha256(branch[i] + value).digest()
+        else:
+            value = hashlib.sha256(value + branch[i]).digest()
+    return value == root
+
+
+def attestation_committee_index(attestation) -> int:
+    """The committee an attestation covers: ``data.index`` before Electra
+    (Electra's committee bits are not ported, ROADMAP A 16)."""
+    if hasattr(attestation, "committee_bits"):
+        raise NotImplementedError("Electra attestations are not ported (ROADMAP A 16)")
+    return int(attestation.data.index)

@@ -305,15 +305,45 @@ MAX_ATTESTATIONS = 128          # Deneb block body limit
 SYNC_COMMITTEE_SIZE = 512
 
 
+KEY_CHAINS = 1024                # chains of consecutive keys built side by side
+
+
 def consecutive_pubkeys(s0: int, n: int) -> list:
-    """Public keys of the secret scalars s0, s0 + 1, ..., s0 + n - 1:
-    pk_{i+1} = pk_i + G, one host point addition per key."""
+    """Public keys of the secret scalars s0, s0 + 1, ..., s0 + n - 1, with
+    their points (pk_{i+1} = pk_i + G).  ``KEY_CHAINS`` chains of
+    consecutive keys advance together, each step sharing one field
+    inversion among the chains (Montgomery's trick), so a key costs a few
+    host products."""
     g = cv.g1_generator()
-    pt = cv.g1_mul(g, s0)
-    out = []
-    for _ in range(n):
-        out.append(bls.PublicKey(cv.g1_to_bytes(pt), pt))
-        pt = cv.g1_add(pt, g)
+    gx, gy = g
+    lanes = max(1, min(KEY_CHAINS, n))
+    step = -(-n // lanes)
+    pts = [cv.g1_mul(g, s0 + j * step) for j in range(lanes)]
+    out: list = [None] * n
+    for k in range(step):
+        for j, pt in enumerate(pts):
+            i = j * step + k
+            if i < n:
+                out[i] = bls.PublicKey(cv.g1_to_bytes(pt), pt)
+        if k + 1 == step:
+            break
+        dx = [(gx - x) % FIELD_P for x, _y in pts]
+        if not all(dx):                    # a chain at ±G: add it alone
+            pts = [cv.g1_add(pt, g) for pt in pts]
+            continue
+        prefix = [1] * (lanes + 1)
+        for j, d in enumerate(dx):
+            prefix[j + 1] = prefix[j] * d % FIELD_P
+        inv = pow(prefix[lanes], FIELD_P - 2, FIELD_P)
+        nxt = [None] * lanes
+        for j in range(lanes - 1, -1, -1):
+            inv_d = inv * prefix[j] % FIELD_P
+            inv = inv * dx[j] % FIELD_P
+            x, y = pts[j]
+            lam = (gy - y) * inv_d % FIELD_P
+            x3 = (lam * lam - x - gx) % FIELD_P
+            nxt[j] = (x3, (lam * (x - x3) - y) % FIELD_P)
+        pts = nxt
     return out
 
 
@@ -677,3 +707,244 @@ def non_g1_point(seed: int):
 # a point of order 3 of E(Fq): (0, ±2) (x = 0 points are the curve's
 # inflection points)
 ORDER3_G1 = (0, 2)
+
+
+# --------------------------------------------------------------------------
+# full Deneb blocks with real signatures (BASELINE config 2)
+# --------------------------------------------------------------------------
+
+class BlockProducer:
+    """Makes full, validly signed Deneb blocks on a state whose validator i
+    holds the secret scalar ``s0 + i``: the block-making part of the JAX
+    package's ``Harness`` (``lighthouse_tpu/testing.py:124-335``:
+    ``produce_block``, ``_sync_aggregate``, ``_execution_payload``,
+    ``attest``).  Aggregates are one ``sign`` with the members' summed
+    scalars (``_aggregate_sign``); post-state roots come from a trial
+    ``process_block`` with NO_VERIFICATION, as ``produce_block`` does.
+    ``state`` is the producer's own copy, moved to each block's post-state;
+    ``device`` runs the shuffles and state roots."""
+
+    def __init__(self, state, spec, s0: int, device=None):
+        from lighthouse_tpu_torch.device import resolve_device
+
+        self.state, self.spec, self.s0 = state, spec, s0
+        self.device = resolve_device(device)
+        self.t = make_types(spec.preset)
+        self._shuffles: dict = {}
+
+    def sk(self, validator_index: int) -> int:
+        return self.s0 + int(validator_index)
+
+    def _sign(self, state, sk_sum: int, obj_root: bytes, domain_type: int, epoch: int) -> bytes:
+        from lighthouse_tpu_torch.state_transition import misc
+
+        domain = misc.get_domain(state, self.spec, domain_type, epoch)
+        return _aggregate_sign(sk_sum, misc.compute_signing_root(obj_root, domain)).to_bytes()
+
+    def shuffle(self, state, epoch: int) -> np.ndarray:
+        from lighthouse_tpu_torch.state_transition import misc
+
+        seed = misc.get_seed(state, self.spec, epoch, self.spec.domain_beacon_attester)
+        if (epoch, seed) not in self._shuffles:
+            self._shuffles[(epoch, seed)] = misc.compute_committee_shuffle(
+                state, self.spec, epoch, device=self.device)
+        return self._shuffles[(epoch, seed)]
+
+    def attest(self, state, slot: int, committee_index: int):
+        """The whole committee's aggregate attestation at ``slot`` (before
+        ``state.slot``) to the head ``state`` saw then."""
+        from lighthouse_tpu_torch.state_transition import misc
+        from lighthouse_tpu_torch.types import AttestationData
+
+        spec = self.spec
+        epoch = spec.compute_epoch_at_slot(slot)
+        committee = misc.get_beacon_committee(state, spec, slot, committee_index,
+                                              self.shuffle(state, epoch))
+        source = (state.current_justified_checkpoint if epoch == misc.current_epoch(state, spec)
+                  else state.previous_justified_checkpoint)
+        data = AttestationData(slot=slot, index=committee_index,
+                               beacon_block_root=misc.get_block_root_at_slot(state, spec, slot),
+                               source=source,
+                               target=Checkpoint(epoch=epoch,
+                                                 root=misc.get_block_root(state, spec, epoch)))
+        sig = self._sign(state, sum(self.sk(v) for v in committee), data.hash_tree_root("cpu"),
+                         spec.domain_beacon_attester, epoch)
+        return self.t.Attestation(aggregation_bits=[True] * committee.shape[0], data=data,
+                                  signature=sig)
+
+    def _sync_aggregate(self, pre, slot: int):
+        from lighthouse_tpu_torch.state_transition import misc
+        from lighthouse_tpu_torch.state_transition.block_processing import (
+            sync_committee_validator_indices,
+        )
+
+        prev_slot = max(slot, 1) - 1
+        members = sync_committee_validator_indices(pre)
+        sig = self._sign(pre, sum(self.sk(v) for v in members),
+                         misc.get_block_root_at_slot(pre, self.spec, prev_slot),
+                         self.spec.domain_sync_committee,
+                         self.spec.compute_epoch_at_slot(prev_slot))
+        return self.t.SyncAggregate(sync_committee_bits=[True] * len(members),
+                                    sync_committee_signature=sig)
+
+    def _execution_payload(self, pre, slot: int):
+        from lighthouse_tpu_torch.state_transition import misc
+        from lighthouse_tpu_torch.state_transition.block_processing import (
+            get_expected_withdrawals,
+        )
+
+        spec = self.spec
+        parent_hash = bytes(pre.latest_execution_payload_header.block_hash)
+        return self.t.ExecutionPayloadDeneb(
+            parent_hash=parent_hash,
+            prev_randao=misc.get_randao_mix(pre, spec, spec.compute_epoch_at_slot(slot)),
+            block_number=slot, timestamp=int(pre.genesis_time) + slot * spec.seconds_per_slot,
+            block_hash=hashlib.sha256(parent_hash + slot.to_bytes(8, "little")).digest(),
+            withdrawals=get_expected_withdrawals(pre, spec))
+
+    def produce_block(self, slot: int | None = None, attestations=None):
+        """A signed block at ``slot`` (default: the next slot) carrying
+        ``attestations`` (default: every committee of the two slots before
+        it), the full sync aggregate, the randao reveal and the proposer's
+        signature.  Returns ``(signed_block, pre, post)``: the producer's
+        state advanced to the slot, and after the block (the producer's
+        state from now on)."""
+        from lighthouse_tpu_torch.state_transition import misc
+        from lighthouse_tpu_torch.state_transition.block_processing import (
+            SignatureStrategy,
+            process_block,
+        )
+        from lighthouse_tpu_torch import ssz
+        from lighthouse_tpu_torch.state_transition.slot_processing import state_advance
+
+        spec, t = self.spec, self.t
+        target = int(self.state.slot) + 1 if slot is None else slot
+        pre = self.state.copy()
+        state_advance(pre, spec, target, self.device)
+        epoch = spec.compute_epoch_at_slot(target)
+        if attestations is None:
+            per_slot = misc.get_committee_count_per_slot(
+                spec, self.shuffle(pre, epoch).shape[0])
+            attestations = [self.attest(pre, s, ci) for s in (target - 2, target - 1)
+                            for ci in range(per_slot)]
+        proposer = misc.get_beacon_proposer_index(pre, spec)
+        body = t.BeaconBlockBodyDeneb(
+            randao_reveal=self._sign(pre, self.sk(proposer),
+                                     ssz.uint64.hash_tree_root(epoch, "cpu"),
+                                     spec.domain_randao, epoch),
+            eth1_data=pre.eth1_data, graffiti=b"lighthouse-tpu".ljust(32, b"\x00"),
+            attestations=list(attestations), sync_aggregate=self._sync_aggregate(pre, target),
+            execution_payload=self._execution_payload(pre, target))
+        block = t.BeaconBlockDeneb(slot=target, proposer_index=proposer,
+                                   parent_root=pre.latest_block_header.hash_tree_root("cpu"),
+                                   state_root=b"\x00" * 32, body=body)
+        post = pre.copy()
+        process_block(post, spec, t.SignedBeaconBlockDeneb(message=block),
+                      SignatureStrategy.NO_VERIFICATION, shuffle_fn=self.shuffle,
+                      device=self.device)
+        block.state_root = post.hash_tree_root(self.device)
+        sig = self._sign(pre, self.sk(proposer), block.hash_tree_root(self.device),
+                         spec.domain_beacon_proposer, epoch)
+        self.state = post
+        return t.SignedBeaconBlockDeneb(message=block, signature=sig), pre, post
+
+
+    def resign(self, block):
+        """The block signed by the validator it names as proposer (tampered
+        blocks whose only fault is inside)."""
+        epoch = self.spec.compute_epoch_at_slot(int(block.slot))
+        sig = self._sign(self.state, self.sk(int(block.proposer_index)),
+                         block.hash_tree_root(self.device), self.spec.domain_beacon_proposer, epoch)
+        return self.t.SignedBeaconBlockDeneb(message=block, signature=sig)
+
+
+def tampered_blocks(cell: dict) -> dict:
+    """Copies of ``cell["blocks"][0]``, each signed by its named proposer,
+    with one fault and the ``BlockError`` reason the chain must give:
+    two attestations' signatures swapped (``batch_signature_invalid``), a
+    wrong state root (``state_root_mismatch``), the next validator named as
+    proposer (``incorrect_proposer``)."""
+    producer, good = cell["producer"], cell["blocks"][0].message
+    n = len(cell["state"].validators)
+
+    def variant(edit):
+        block = good.copy()
+        edit(block)
+        return producer.resign(block)
+
+    def swap(b):
+        atts = b.body.attestations
+        atts[0].signature, atts[1].signature = atts[1].signature, atts[0].signature
+
+    return {
+        "batch_signature_invalid": variant(swap),
+        "state_root_mismatch": variant(lambda b: setattr(b, "state_root", b"\x11" * 32)),
+        "incorrect_proposer": variant(
+            lambda b: setattr(b, "proposer_index", (int(b.proposer_index) + 1) % n)),
+    }
+
+
+def block_cell(n_validators: int = 1 << 20, seed: int = 12, n_blocks: int = 2,
+               device=None) -> dict:
+    """BASELINE config 2 on the port: a mainnet-preset Deneb state of
+    ``n_validators`` whose registry keys are
+    ``consecutive_pubkeys(s0, n)``, with ``n_blocks`` consecutive full
+    blocks on it (``BlockProducer``: at 2^20 validators, 128 aggregate
+    attestations over the 64 committees of 512 of each of the two slots
+    before the block, the full sync aggregate, randao and proposal: 131
+    signature sets over 66,050 member keys).
+
+    The state is ``build_state``'s at the first slot of an epoch, with its
+    sync committees drawn from the registry (with replacement, as the
+    spec's sample may repeat), nine tenths of the validators on 0x01
+    credentials with a little excess balance (so that blocks carry a full
+    withdrawals sweep, as mainnet blocks do), and the tree cache attached
+    on ``device``.  The first block is at slot + 2, so its attestations
+    cover two whole slots of the same epoch.  The registry's key objects
+    are interned with their points (``PublicKey.intern_decompressed``): a
+    node holds its registry's keys decompressed, and the verifier then
+    pays no host decompression for them.
+
+    Returns a dict: ``state`` (the anchor), ``spec``, ``s0``, ``blocks``,
+    ``pre_states`` (each block's parent state advanced to its slot, cache
+    attached), ``post_roots``, ``anchor_root``, ``sync_indices``, and
+    ``keygen_s`` (the host seconds of the key column)."""
+    import time
+
+    from lighthouse_tpu_torch.chain.beacon_chain import anchor_block_root
+    from lighthouse_tpu_torch.ssz.tree_cache import enable_tree_cache
+
+    state, spec = build_state(n_validators, seed)
+    rng = np.random.default_rng(seed + 1)
+    s0 = int(rng.integers(1, 1 << 62))
+    t0 = time.perf_counter()
+    pks = consecutive_pubkeys(s0, n_validators)
+    bls.PublicKey.intern_decompressed(pks)
+    state.validators.pubkeys = np.frombuffer(b"".join(pk.to_bytes() for pk in pks),
+                                             np.uint8).reshape(n_validators, 48)
+    keygen_s = time.perf_counter() - t0
+    eth1 = rng.random(n_validators) < 0.9
+    creds = state.validators.withdrawal_credentials
+    creds[eth1, 0] = 0x01
+    creds[eth1, 1:12] = 0
+    state.balances[eth1] += rng.integers(1, 10**8, int(eth1.sum())).astype(np.uint64)
+    t = make_types(spec.preset)
+    for name in ("current_sync_committee", "next_sync_committee"):
+        idx = rng.integers(0, n_validators, spec.preset.sync_committee_size)
+        agg = cv.INF
+        for i in idx:
+            agg = cv.g1_add(agg, pks[int(i)].point)
+        setattr(state, name, t.SyncCommittee(pubkeys=[pks[int(i)].to_bytes() for i in idx],
+                                             aggregate_pubkey=cv.g1_to_bytes(agg)))
+    enable_tree_cache(state, device)
+    anchor_root = anchor_block_root(state, device)
+    producer = BlockProducer(state.copy(), spec, s0, device)
+    blocks, pre_states, post_roots = [], [], []
+    for k in range(n_blocks):
+        signed, pre, post = producer.produce_block(int(state.slot) + 2 + k)
+        blocks.append(signed)
+        pre_states.append(pre)
+        post_roots.append(bytes(signed.message.state_root))
+    return dict(state=state, spec=spec, s0=s0, blocks=blocks, pre_states=pre_states,
+                post_roots=post_roots, anchor_root=anchor_root, keygen_s=keygen_s,
+                producer=producer)

@@ -20,15 +20,26 @@ from lighthouse_tpu_torch.types.registry import (
     Validators,
 )
 from lighthouse_tpu_torch.types.containers import (
+    DEPOSIT_CONTRACT_TREE_DEPTH,
     AttestationData,
     BeaconBlockHeader,
+    BLSToExecutionChange,
     Checkpoint,
+    Deposit,
+    DepositData,
+    DepositMessage,
     Eth1Data,
     Fork,
     ForkData,
     HistoricalSummary,
+    ProposerSlashing,
+    SignedBeaconBlockHeader,
+    SignedBLSToExecutionChange,
+    SignedVoluntaryExit,
     SigningData,
     Validator,
+    VoluntaryExit,
+    Withdrawal,
     make_types,
 )
 
@@ -37,5 +48,7 @@ __all__ = [
     "AttestationData", "ChainSpec", "ForkData", "Preset", "SigningData", "RootsList", "RootsVector", "U8List", "U64List",
     "U64Vector", "ValidatorRegistryType", "Validators", "BeaconBlockHeader",
     "Checkpoint", "Eth1Data", "Fork", "HistoricalSummary", "Validator",
-    "make_types",
+    "make_types", "DEPOSIT_CONTRACT_TREE_DEPTH", "BLSToExecutionChange", "Deposit",
+    "DepositData", "DepositMessage", "ProposerSlashing", "SignedBeaconBlockHeader",
+    "SignedBLSToExecutionChange", "SignedVoluntaryExit", "VoluntaryExit", "Withdrawal",
 ]

@@ -316,6 +316,26 @@ class Validators:
         e = np.uint64(epoch)
         return (self.activation_epoch <= e) & (e < self.exit_epoch)
 
+    def is_slashable(self, epoch: int) -> np.ndarray:
+        """bool[n]: the spec's ``is_slashable_validator`` at ``epoch``."""
+        e = np.uint64(epoch)
+        return ~self.slashed & (self.activation_epoch <= e) & (e < self.withdrawable_epoch)
+
+    def append(self, *, pubkey: bytes, withdrawal_credentials: bytes, effective_balance: int,
+               slashed: bool = False, activation_eligibility_epoch: int, activation_epoch: int,
+               exit_epoch: int, withdrawable_epoch: int) -> None:
+        """Add one row (a new deposit): every column grows by one."""
+        row = dict(pubkeys=np.frombuffer(bytes(pubkey), np.uint8)[None],
+                   withdrawal_credentials=np.frombuffer(bytes(withdrawal_credentials),
+                                                        np.uint8)[None],
+                   effective_balance=[effective_balance], slashed=[bool(slashed)],
+                   activation_eligibility_epoch=[activation_eligibility_epoch],
+                   activation_epoch=[activation_epoch], exit_epoch=[exit_epoch],
+                   withdrawable_epoch=[withdrawable_epoch])
+        for c in self._COLUMNS:
+            old = getattr(self, "_" + c)
+            setattr(self, "_" + c, np.concatenate([old, np.asarray(row[c], old.dtype)]))
+
     def is_eligible_for_activation_queue(self, max_effective_balance: int) -> np.ndarray:
         """bool[n]: not yet queued and at the maximum effective balance."""
         return ((self.activation_eligibility_epoch == np.uint64(FAR_FUTURE_EPOCH))

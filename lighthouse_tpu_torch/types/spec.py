@@ -20,7 +20,8 @@ FORKS = ("phase0", "altair", "bellatrix", "capella", "deneb", "electra")
 
 @dataclass(frozen=True)
 class Preset:
-    """Compile-time sizes of the Deneb beacon state and its committees."""
+    """Compile-time sizes of the Deneb beacon state, its committees and
+    its block bodies."""
 
     name: str
     slots_per_epoch: int
@@ -38,6 +39,18 @@ class Preset:
     bytes_per_logs_bloom: int
     max_extra_data_bytes: int
     max_validators_per_committee: int = 2048     # both presets
+    # block body and execution payload limits (both presets but the sweep)
+    max_proposer_slashings: int = 16
+    max_attester_slashings: int = 2
+    max_attestations: int = 128
+    max_deposits: int = 16
+    max_voluntary_exits: int = 16
+    max_bls_to_execution_changes: int = 16
+    max_bytes_per_transaction: int = 2**30
+    max_transactions_per_payload: int = 2**20
+    max_blob_commitments_per_block: int = 4096
+    max_withdrawals_per_payload: int = 16
+    max_validators_per_withdrawals_sweep: int = 16384
 
 
 MAINNET_PRESET = Preset(
@@ -74,6 +87,8 @@ MINIMAL_PRESET = Preset(
     epochs_per_sync_committee_period=8,
     bytes_per_logs_bloom=256,
     max_extra_data_bytes=32,
+    max_withdrawals_per_payload=4,
+    max_validators_per_withdrawals_sweep=16,
 )
 
 PRESETS = {p.name: p for p in (MAINNET_PRESET, MINIMAL_PRESET)}
@@ -97,6 +112,8 @@ class ChainSpec:
 
     # time parameters
     seconds_per_slot: int = 12
+    min_attestation_inclusion_delay: int = 1
+    shard_committee_period: int = 256
     min_seed_lookahead: int = 1
     max_seed_lookahead: int = 4
     min_validator_withdrawability_delay: int = 256
@@ -104,6 +121,8 @@ class ChainSpec:
 
     # rewards and penalties (Bellatrix values hold from Bellatrix on)
     base_reward_factor: int = 64
+    whistleblower_reward_quotient: int = 512
+    min_slashing_penalty_quotient_bellatrix: int = 32
     inactivity_penalty_quotient_bellatrix: int = 2**24
     proportional_slashing_multiplier_bellatrix: int = 3
     inactivity_score_bias: int = 4
@@ -183,6 +202,7 @@ class ChainSpec:
         package; ``with_forks_at(0, "deneb")`` gives a Deneb-at-genesis
         chain."""
         return ChainSpec(preset=MINIMAL_PRESET, config_name="minimal", seconds_per_slot=6,
+                         shard_committee_period=64,
                          altair_fork_epoch=FAR_FUTURE_EPOCH,
                          bellatrix_fork_epoch=FAR_FUTURE_EPOCH,
                          capella_fork_epoch=FAR_FUTURE_EPOCH,
