@@ -10,8 +10,9 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
 
 1. Build every kernel source at once (nvcc for ``csrc/sha256.cu``,
    ``csrc/bls12_381.cu``, ``csrc/epoch.cu`` and ``csrc/kzg.cu``, g++ for
-   the host ``csrc/bls_host.cc``) and print the SHA-256 build's
-   ``-Xptxas -v`` report.
+   the host ``csrc/bls_host.cc`` and ``csrc/bls_tapes.cc``, the tapes of
+   the BLS group kernels) and print the SHA-256 build's ``-Xptxas -v``
+   report.
 2. Each SHA-256 kernel against its plain PyTorch version on the card, at
    the shapes of a 2^20-validator state root, bit for bit (tolerance 0:
    SHA-256 is integer arithmetic); the pair hash also against hashlib.
@@ -24,14 +25,21 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    run alone.  Afterwards: the full root against the root from the plain
    versions on the card, each cached slot root against an uncached one,
    and one more slot profiled for where its time goes.
-5. The BLS build report: seconds and each kernel's registers and stack.
-6. Each BLS12-381 kernel against its plain PyTorch version on the card at
-   the main path's shapes, tolerance 0 (integer arithmetic): the verify
-   pipeline at the block batch's flat 256 lanes and the 1k batch's grouped
-   512 lanes, the ψ subgroup check at 256 and 1024 lanes with a point
-   outside G2 and a point of order 13 (both must read False), the blinded
-   pubkey fold at 262,144 lanes and the chunk-partial Fq12 product.  Times
-   every kernel and plain version with CUDA events.
+5. The BLS build report: seconds of each build.
+6. Each BLS12-381 kernel's ptxas line (stack frame, spills, registers,
+   stack, static shared memory; a group kernel that spills fails the run),
+   the group kernels' widths and dynamic shared memory and their tapes'
+   levels, products and rounds, the Fp product's cycles in a chain of one
+   warp alone (held to Python integers); then each kernel against its
+   plain PyTorch version on the card at the main path's shapes, tolerance 0
+   (integer arithmetic): the verify pipeline at the block batch's flat 256
+   lanes and the 1k batch's grouped 512 lanes, the ψ subgroup check at 256
+   and 1024 lanes with a point outside G2 and a point of order 13 (both
+   must read False), the blinded pubkey fold at 262,144 lanes and the
+   chunk-partial Fq12 product.  Times every kernel and plain version with
+   CUDA events.  Then edge batches, compared only: the pipeline at one
+   lane, with every Miller lane masked and with every scalar zero, and an
+   Fq12 product with a factor of one.
 7. The BLS main path: ``verify_signature_sets(backend="cuda")`` on the 1k-set
    microbench and on the 131 sets of one mainnet block at 2^20 validators,
    each cold once, then timed with fresh signatures (decompression and the
@@ -39,7 +47,8 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    over this run alone.  Afterwards: tampered batches (wrong message,
    signature outside G2, identity aggregate) must fail, chunked and
    monolithic verdicts must agree, small batches must agree with the host
-   reference backend, and one block run is profiled.
+   reference backend, and one block run is profiled (with ``k_miller``'s
+   time as cycles per Fp product of a lane).
 8. The epoch kernels against their plain PyTorch versions on the card,
    tolerance 0 (integer arithmetic), on a 2^20-validator mainnet Deneb
    state at the last slot of an epoch (``testing.epoch_state``): the fused
@@ -63,7 +72,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     of width 4096: raw to Montgomery and the barycentric evaluation over
     [768, 4096] (one challenge on the domain), the G1 fold over 4096 lanes
     in one segment and interleaved in two, the fused check over its 4096
-    lanes, and the Miller product of 2 pairs padded to 4 lanes.
+    lanes, and the Miller product of 2 pairs padded to 4 lanes; first the
+    ptxas lines of the path's kernels (a group kernel that spills fails the
+    run), last edge batches, compared only: the fold at one lane and with
+    every scalar zero.
 11. The KZG main path (BASELINE config 5, as the JAX package's
     ``bench.py`` builds it): ``KzgSettings.dev(4096)``, the 6 unique blobs'
     commitments and proofs (checked against p(τ), q(τ) and the host
@@ -148,6 +160,7 @@ import hashlib
 import json
 import os
 import pstats
+import re
 import statistics
 import subprocess
 import sys
@@ -210,13 +223,13 @@ def main() -> int:
         build(name)
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         jobs = {name: pool.submit(timed_build, build, name) for build, name in (
             (native.build_cuda_lib, "sha256"), (native.build_cuda_lib, "bls12_381"),
             (native.build_cuda_lib, "epoch"), (native.build_cuda_lib, "kzg"),
-            (native.build_host_lib, "bls_host"))}
+            (native.build_host_lib, "bls_host"), (native.build_host_lib, "bls_tapes"))}
         build_s = {name: job.result() for name, job in jobs.items()}
-    log(f"build sha256.cu {build_s['sha256']:.3f} s (all five sources built at once)")
+    log(f"build sha256.cu {build_s['sha256']:.3f} s (all six sources built at once)")
     for line in native.build_log("sha256").splitlines():
         if "ptxas" in line:
             log(f"  {line.strip()}")
@@ -420,16 +433,8 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
 
     # -- 5. build report ----------------------------------------------------
     log(f"build bls12_381.cu {build_s['bls12_381']:.3f} s, bls_host.cc (g++) "
-        f"{build_s['bls_host']:.3f} s (built in parallel in phase 1)")
-    entry = None
-    for line in native.build_log("bls12_381").splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1].split("_cu_")[-1][8:40]
-        elif "Used" in line and entry:
-            log(f"  {entry}: {line.split(':', 1)[1].strip()}")
-            entry = None
-        elif "spill" in line and "0 bytes spill stores" not in line:
-            log(f"  spill: {line.strip()}")
+        f"{build_s['bls_host']:.3f} s, bls_tapes.cc (g++) {build_s['bls_tapes']:.3f} s "
+        f"(built in parallel in phase 1)")
 
     props = torch.cuda.get_device_properties(0)
     imad_per_s = props.multi_processor_count * IMAD_LANES_PER_SM * max_mhz * 1e6
@@ -460,6 +465,17 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
         return int((bi.u64(got.to(torch.int32)) - bi.u64(want.to(torch.int32))).abs().max())
 
     # -- 6. BLS kernels against their plain versions ------------------------
+    ptxas_report(native, "bls12_381", BLS_KERNELS)
+    stats = bls_cuda.tape_stats()
+    for k, v in stats["kernels"].items():
+        staged = sum(stats["tapes"][t]["positions"] * 8 + stats["tapes"][t]["levels"] * 2
+                     for t in v["tapes"])
+        log(f"  {k}: groups of {v['width']} threads, {v['workspace_slots']} Fp slots a lane; "
+            f"dynamic shared memory a warp-sized block {v['workspace_slots'] * 48 * 32 // v['width']}"
+            f" bytes of workspaces + about {staged} bytes of staged tapes")
+    log(f"  tapes (levels, temporaries, products, rounds of a level's products over the group "
+        f"width, positions): { {t: tuple(v.values()) for t, v in stats['tapes'].items()} }")
+    fp_mul_cycles(torch, np, dev, bls_cuda, bi, max_mhz)
     t0 = time.perf_counter()
     micro = T.microbench_sets(1024)
     block = T.block_signature_sets(BLS_SEED)
@@ -537,6 +553,26 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
                                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     del cases, fold_args
+    # edge batches of the group kernels, compared only: one lane, every Miller
+    # lane masked, every scalar zero; an Fq12 factor of one
+    t_edges = time.perf_counter()
+    eight, one = layout(micro[:8]), layout(micro[:1])
+    edges = [("one lane", one),
+             ("8 lanes, every Miller lane masked", eight[:7] + (torch.zeros_like(eight[7]),)
+              + eight[8:]),
+             ("8 lanes, every scalar zero", eight[:6] + (torch.zeros_like(eight[6]),) + eight[7:])]
+    for what, args in edges:
+        err = max_err(bb.pipeline_device(*args), bb.pipeline_plain(*args))
+        if err != 0:
+            raise SystemExit(f"pipeline [{what}]: kernel disagrees with its plain version "
+                             f"(max err {err})")
+    f_one = bi.to_tensor(np.stack([bi.ints_to_mont_limbs([1] + [0] * 11)]), dev)
+    for x, y in ((fa, f_one), (f_one, fb)):
+        err = max_err(dp.fq12_mul_device(x, y), dp.fq12_mul_plain(x, y))
+        if err != 0:
+            raise SystemExit(f"fq12_mul with a factor of one: kernel disagrees (max err {err})")
+    log(f"edge batches == plain ({time.perf_counter() - t_edges:.1f} s): pipeline "
+        f"{[w for w, _ in edges]}; fq12_mul with a factor of one")
 
     # -- 7. the BLS main path ------------------------------------------------
     def verify(sets, **kw):
@@ -595,22 +631,17 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
     # one profiled block batch, after a warm-up step that starts the tracer
     # (a kernel launched as tracing starts can be lost); device busy is the
     # union of the trace's kernel and copy spans
-    from torch.profiler import ProfilerActivity, profile, schedule
-    bb.reset_launches()
-    with tempfile.TemporaryDirectory() as tmp:
-        trace_path = os.path.join(tmp, "block.json")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: p.export_chrome_trace(trace_path)) as prof:
-            for fresh in (T.fresh(block), T.fresh(block)):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                bls.verify_signature_sets(fresh, backend="cuda")
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-                prof.step()
-        busy, spans, device_us = device_busy(trace_path)
-    per_run = {k.__name__: k.launches // 2 for k in bb.KERNELS}
+    def block_step():
+        fresh = T.fresh(block)
+        bb.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bls.verify_signature_sets(fresh, backend="cuda")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    busy, spans, device_us, wall_ms = traced("block", block_step)
+    per_run = {k.__name__: k.launches for k in bb.KERNELS}
     expected = ["k_g2_subgroup", "k_g1_add_halves", "k_blinded_final", "k_gj_scalar_mul",
                 "k_g2_add_halves", "k_miller", "k_fq12_mul_halves"]
     lost = [k for k in expected if not any(name.startswith(k) for name in device_us)]
@@ -621,10 +652,94 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
         f"{[(k, round(v, 1)) for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])]}")
     if lost:
         raise SystemExit(f"the traced block batch lacks kernels the run launched: {lost}")
+    per = device_us["k_miller"] * max_mhz / bls_cuda.MILLER_LANE
+    log(f"k_miller in the traced block batch: {device_us['k_miller'] / 1e3:.3f} ms, its lanes "
+        f"side by side: {per:.0f} cycles at {max_mhz:.0f} MHz per Fp product of a lane "
+        f"({bls_cuda.MILLER_LANE} products)")
     fresh = T.fresh(block)
     log(f"host profile of one block batch, top 5 by own time (ms): "
         f"{host_top5(lambda: bls.verify_signature_sets(fresh, backend='cuda'))}")
     return block
+
+
+# The kernels that run a lane on a group of threads from tapes (csrc/bls12_381.cuh):
+# a spill in any of them fails the run.
+GROUP_KERNELS = ("k_gj_scalar_mul", "k_g1_scalar_mul", "k_g1_gather_scalar_mul", "k_miller",
+                 "k_fq12_mul_halves", "k_fq12_mul")
+BLS_KERNELS = GROUP_KERNELS + ("k_g1_add_halves", "k_g2_add_halves", "k_g2_subgroup",
+                               "k_blinded_final", "k_g1_affine", "k_g1_subgroup",
+                               "k_final_exp_hard", "k_fp_mul_chain")
+
+
+def ptxas_report(native, name: str, kernels) -> None:
+    """Log each kernel's ptxas report from the build of csrc/<name>.cu
+    (stack frame, spills, registers, barriers, stack, static shared memory);
+    fail the run when a group kernel spills."""
+    rows, fn = {}, None
+    for line in native.build_log(name).splitlines():
+        if "Function properties for" in line:
+            fn = line.rsplit(" ", 1)[-1]
+        elif fn and ("spill" in line or "Used" in line):
+            rows.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+    spilled = []
+    for k in kernels:
+        hits = [v for f, v in rows.items() if f"{len(k)}{k}E" in f]
+        if not hits:
+            raise SystemExit(f"ptxas reported nothing for {k} in {name}.cu")
+        log(f"  {k}: {'; '.join(hits[0])}")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", " ".join(hits[0]))
+        if k in GROUP_KERNELS and (m is None or int(m.group(1)) or int(m.group(2))):
+            spilled.append(k)
+    if spilled:
+        raise SystemExit(f"group kernels spill registers: {spilled}")
+
+
+def fp_mul_cycles(torch, np, dev, bls_cuda, bi, max_mhz: float) -> float:
+    """The Fp product's latency in the kernels' code: one warp alone on the
+    card, each thread a chain of dependent products (clock64), the results
+    held to Python integers."""
+    rng = np.random.default_rng(BLS_SEED + 9)
+    n, iters = 32, 256
+    xs, ys = ([int.from_bytes(rng.bytes(48), "little") % bi.P_INT for _ in range(n)]
+              for _ in range(2))
+    a, b = (bi.to_tensor(bi.ints_to_mont_limbs(v), dev) for v in (xs, ys))
+    out = torch.empty_like(a)
+    cycles = torch.empty(n, dtype=torch.int64, device=dev)
+    for _ in range(2):                      # the first run warms the instruction cache
+        bls_cuda.launch("lh_fp_mul_chain", a, b, out, cycles, n, iters)
+    torch.cuda.synchronize()
+    if bi.mont_limbs_to_ints(bi.to_numpy(out)) != [x * pow(y, iters, bi.P_INT) % bi.P_INT
+                                                  for x, y in zip(xs, ys)]:
+        raise SystemExit("lh_fp_mul_chain disagrees with Python integers")
+    per = cycles.double().mean().item() / iters
+    log(f"Fp product: {per:.1f} cycles each in chains of {iters} dependent products, one warp "
+        f"alone on the card ({per / max_mhz * 1e3:.1f} ns at {max_mhz:.0f} MHz); "
+        f"== Python integers")
+    return per
+
+
+def traced(name: str, step) -> tuple:
+    """Run ``step()`` twice under torch.profiler and trace the second run (a
+    kernel launched as tracing starts can be lost) -> (busy ms, device spans,
+    device us by name, the traced run's result).  A trace that holds no
+    device activity at all, kernel or copy (the profiler recorded nothing),
+    is taken once more on two more runs; the callers' checks hold either
+    way."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for attempt in range(2):
+        with tempfile.TemporaryDirectory() as tmp:
+            trace_path = os.path.join(tmp, f"{name}.json")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=lambda p: p.export_chrome_trace(trace_path)) as prof:
+                for _ in range(2):
+                    out = step()
+                    prof.step()
+            busy, spans, device_us = device_busy(trace_path)
+        if spans or attempt:
+            return busy, spans, device_us, out
+        log(f"{name}: the profiler recorded no device activity in the traced run; tracing "
+            f"two more runs")
 
 
 def device_busy(trace_path: str) -> tuple[float, int, dict]:
@@ -814,7 +929,7 @@ def boundary_path(torch, np, dev, state, spec, fill: str) -> dict:
     ref = state.copy()                          # the device="cpu" run's copy
     del ref._tree_cache
     timing = ref.copy()                         # for epoch_ms after the main path
-    profiled = [state.copy() for _ in range(3)]   # warm-up, traced, cProfiled crossings
+    profiled = state.copy()       # the traced runs cross copies of it, the cProfiled run itself
     torch.cuda.synchronize()
     sha.reset_launches()
     ek.reset_launches()
@@ -889,20 +1004,15 @@ def boundary_path(torch, np, dev, state, spec, fill: str) -> dict:
                     "prep_host_ms": stages["prep_host_ms"], "dispatch_ms": stages["dispatch_ms"],
                     "shuffle_device_ms": shuffle_device_ms, "boundary_slot_ms": boundary_ms}))
     del timing
-    from torch.profiler import ProfilerActivity, profile, schedule
-    with tempfile.TemporaryDirectory() as tmp:
-        trace_path = os.path.join(tmp, "boundary.json")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: p.export_chrome_trace(trace_path)) as prof:
-            for crossing in profiled[:2]:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                per_slot_processing(crossing, spec)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-                prof.step()
-        busy, spans, device_us = device_busy(trace_path)
+    def boundary_step():
+        crossing = profiled.copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per_slot_processing(crossing, spec)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    busy, spans, device_us, wall_ms = traced("boundary", boundary_step)
     lost = [k for k in ("k_fused_epoch_pass",) if not any(n.startswith(k) for n in device_us)]
     log(f"{fill} fill, profiled boundary slot: wall {wall_ms:.1f} ms, device busy {busy:.3f} ms "
         f"({100 * (1 - busy / wall_ms):.1f}% idle; {spans} device spans); device time by name "
@@ -911,7 +1021,7 @@ def boundary_path(torch, np, dev, state, spec, fill: str) -> dict:
         raise SystemExit(f"{fill} fill: the traced boundary slot lacks kernels the run "
                          f"launched: {lost}")
     log(f"{fill} fill, host profile of one boundary slot, top 5 by own time (ms): "
-        f"{host_top5(lambda: per_slot_processing(profiled[2], spec))}")
+        f"{host_top5(lambda: per_slot_processing(profiled, spec))}")
     return launches
 
 
@@ -935,15 +1045,9 @@ def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> tuple:
     # -- 10. KZG kernels against their plain versions ------------------------
     t_phase = time.perf_counter()
     log(f"build kzg.cu {build_s['kzg']:.3f} s (built in parallel in phase 1)")
-    for name in ("kzg", "bls12_381"):
-        entry = None
-        for line in native.build_log(name).splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif "Used" in line and entry and any(k in entry for k in (
-                    "k_fr_", "k_g1_scalar_mul")):
-                log(f"  {entry.split('_cu_')[-1][8:40]}: {line.split(':', 1)[1].strip()}")
-                entry = None
+    ptxas_report(native, "kzg", ("k_fr_to_mont", "k_fr_eval"))
+    ptxas_report(native, "bls12_381", ("k_g1_scalar_mul", "k_g1_add_halves", "k_miller",
+                                       "k_fq12_mul_halves"))
     props = torch.cuda.get_device_properties(0)
     imad_per_s = props.multi_processor_count * IMAD_LANES_PER_SM * max_mhz * 1e6
 
@@ -1048,6 +1152,22 @@ def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> tuple:
             table[key] = dict(name=key, route="cuda", source=source, replaces=replaces,
                               launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    # edge batches of the G1 lanes, compared only: one lane, every scalar
+    # zero (the Miller and Fq12 lanes' edges ran in phase 6; the card tests
+    # hold rows 10 and 14 to their plain versions on theirs)
+    t_edges = time.perf_counter()
+    edges = [("g1_fold [1 lane]", msm.fold_device, msm.fold_plain,
+              (xs[:1], ys[:1], digits[:, :1].contiguous(), 1)),
+             ("g1_fold [4 lanes, every scalar zero]", msm.fold_device, msm.fold_plain,
+              (xs[:4], ys[:4], torch.zeros_like(digits[:, :4]), 2))]
+    for label, kernel, plain, kargs in edges:
+        got, want = kernel(*kargs), plain(*kargs)
+        torch.cuda.synchronize()
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        err = max(int((bi.u64(g_) - bi.u64(w_)).abs().max()) for g_, w_ in zip(got, want))
+        if err != 0:
+            raise SystemExit(f"{label}: kernel disagrees with its plain version (max err {err})")
+    log(f"edge batches == plain ({time.perf_counter() - t_edges:.1f} s): {[e[0] for e in edges]}")
     ys_dev = fr.from_mont_host(bi.to_numpy(fr.eval_device(f_m, z_t, roots_t, invw_t)[:8]))
     host_settings = kzg.KzgSettings(w, [], None, roots)
     for i in (0, 6, 7):
@@ -1149,20 +1269,14 @@ def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> tuple:
                     "kzg_setup_s": setup_s,
                     "stages_ms": {k: v * 1e3 for k, v in ledger.items()},
                     "block_stages_ms": {k: v * 1e3 for k, v in block_ledger.items()}}))
-    from torch.profiler import ProfilerActivity, profile, schedule
-    with tempfile.TemporaryDirectory() as tmp:
-        trace_path = os.path.join(tmp, "kzg.json")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p_: p_.export_chrome_trace(trace_path)) as prof:
-            for _ in range(2):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                kzg.verify_blob_kzg_proof_batch(blobs, commits, prfs, settings, dev)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-                prof.step()
-        busy, spans, device_us = device_busy(trace_path)
+    def kzg_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kzg.verify_blob_kzg_proof_batch(blobs, commits, prfs, settings, dev)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    busy, spans, device_us, wall_ms = traced("kzg", kzg_step)
     lost = [k for k in ("k_fr_to_mont", "k_fr_eval", "k_g1_scalar_mul", "k_g1_add_halves",
                         "k_miller", "k_fq12_mul_halves")
             if not any(name.startswith(k) for name in device_us)]
@@ -1224,7 +1338,7 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> None:
     # -- 12. the gather fold and the G1 membership kernels against their plain
     #        versions, tolerance 0 (integer arithmetic) ------------------------
     t0 = time.perf_counter()
-    cell = T.flood_cell(FLOOD_VALIDATORS, FLOOD_ATTS, FLOOD_SEED, n_spare=6, device=dev)
+    cell = T.flood_cell(FLOOD_VALIDATORS, FLOOD_ATTS, FLOOD_SEED, n_spare=10, device=dev)
     flood_build_s = time.perf_counter() - t0
     state, spec = cell["state"], cell["spec"]
     log(f"built the flood cell ({FLOOD_VALIDATORS} validators, {FLOOD_ATTS} signed single-bit "
@@ -1442,7 +1556,6 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> None:
     # fresh signatures (the spare batches: a node sees each gossip signature
     # once); the kernels a traced batch must show are those its wrappers
     # launched in the traced step
-    from torch.profiler import ProfilerActivity, profile, schedule
     kernel_names = {"pipeline_device": ["k_gj_scalar_mul", "k_miller", "k_fq12_mul_halves"],
                     "g2_subgroup_device": ["k_g2_subgroup"], "fq12_mul_device": ["k_fq12_mul"],
                     "blinded_fold_device": ["k_blinded_final"],
@@ -1454,27 +1567,23 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> None:
     for name in ("cuda", "reference"):
         c = new_chain(name, cell["spare_slot"])
         c.committee_shuffle(state, cell["epoch"])
-        with tempfile.TemporaryDirectory() as tmp:
-            trace_path = os.path.join(tmp, "flood.json")
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                         schedule=schedule(wait=0, warmup=1, active=1),
-                         on_trace_ready=lambda p_: p_.export_chrome_trace(trace_path)) as prof:
-                for _ in range(2):
-                    b = next(spare)
-                    before = launches()
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    ci.process_wire_batch(c, [(blob, False) for blob in b])
-                    torch.cuda.synchronize()
-                    wall_ms = (time.perf_counter() - t0) * 1e3
-                    prof.step()
-            traced = {k: v - before[k] for k, v in launches().items() if v > before[k]}
-            busy, spans, device_us = device_busy(trace_path)
-        lost = [n for k in traced for n in kernel_names[k]
+
+        def flood_step():
+            b = next(spare)
+            before = launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ci.process_wire_batch(c, [(blob, False) for blob in b])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            return wall_ms, len(b), {k: v - before[k] for k, v in launches().items() if v > before[k]}
+
+        busy, spans, device_us, (wall_ms, n_b, in_trace) = traced("flood", flood_step)
+        lost = [n for k in in_trace for n in kernel_names[k]
                 if not any(d.startswith(n) for d in device_us)]
-        log(f"{name} backend, profiled batch of {len(b)}: wall {wall_ms:.1f} ms, device busy "
+        log(f"{name} backend, profiled batch of {n_b}: wall {wall_ms:.1f} ms, device busy "
             f"{busy:.3f} ms ({100 * (1 - busy / wall_ms):.1f}% idle; {spans} device spans); "
-            f"wrapper launches {traced}; device time by name (us) "
+            f"wrapper launches {in_trace}; device time by name (us) "
             f"{[(n, round(v, 1)) for n, v in sorted(device_us.items(), key=lambda kv: -kv[1])][:8]}")
         if lost:
             raise SystemExit(f"the traced {name} batch lacks kernels the run launched: {lost}")
@@ -1797,34 +1906,28 @@ def block_phase(torch, np, dev, table) -> None:
     # one traced import of the first block per final exponentiation route
     # (a fresh chain each, the counts of the traced import only), then a
     # cProfiled one
-    from torch.profiler import ProfilerActivity, profile, schedule
     names = {"pipeline_device": ("k_gj_scalar_mul", "k_miller"), "g2_subgroup_device":
              ("k_g2_subgroup",), "blinded_fold_device": ("k_blinded_final",),
              "hash_pairs_device": ("k_hash_pairs",), "final_exp_hard_device": ("k_final_exp_hard",),
              "shuffle_rounds": ("k_shuffle_rounds",), "sha256_block_device": ("k_sha256_block",),
              "fq12_mul_device": ("k_fq12_mul",), "fold_levels_device": ("k_hash_pairs",),
              "fold_to_root_device": ("k_fold_subtrees",)}
+    def import_step():
+        chain = new_chain()
+        chain.slot_clock.set_slot(int(b0.slot))
+        bb.reset_launches()
+        sha.reset_launches()
+        ek.reset_launches()
+        t12.final_exp_hard_device.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain.process_block(blocks[0])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
     for route in ("native", "device"):
         _final_exp_route(route == "device")
-        with tempfile.TemporaryDirectory() as tmp:
-            trace_path = os.path.join(tmp, "block_import.json")
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                         schedule=schedule(wait=0, warmup=1, active=1),
-                         on_trace_ready=lambda p_: p_.export_chrome_trace(trace_path)) as prof:
-                for _ in range(2):
-                    chain = new_chain()
-                    chain.slot_clock.set_slot(int(b0.slot))
-                    bb.reset_launches()
-                    sha.reset_launches()
-                    ek.reset_launches()
-                    t12.final_exp_hard_device.launches = 0
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    chain.process_block(blocks[0])
-                    torch.cuda.synchronize()
-                    wall_ms = (time.perf_counter() - t0) * 1e3
-                    prof.step()
-            busy, spans, device_us = device_busy(trace_path)
+        busy, spans, device_us, wall_ms = traced("block_import", import_step)
         launched = {k: v for k, v in launches().items() if v}
         lost = [k for fn, ks in names.items() if launched.get(fn) for k in ks
                 if not any(name.startswith(k) for name in device_us)]

@@ -4,8 +4,10 @@
 // Counterpart of lighthouse_tpu/ops/{bigint,bls12_381,ec}.py.  Elements are
 // 12 x 32-bit little-endian words, FULLY REDUCED in [0, p), Montgomery
 // R = 2^384: a value has one encoding, so "is zero" and equality are word
-// compares.  Multiplication is word-serial CIOS Montgomery in 64-bit
-// accumulators; every add, sub and product ends fully reduced.
+// compares.  Multiplication is CIOS Montgomery with operands and
+// accumulator in registers (PTX carry chains on the card, 64-bit
+// accumulators in the host build); every add, sub and product ends fully
+// reduced.
 //
 // The tower products may use any formula (their value is unique).  The
 // curve formulas and the Miller loop's line scalings follow the JAX package
@@ -13,16 +15,37 @@
 // values equal it exactly (lighthouse_tpu_torch/ops/ec.py and
 // ops/bls12_381.py hold the same sequences as plain PyTorch).
 //
-// Everything a kernel computes per lane is a function lane_*() here, so the
-// same code also compiles as host C++ (g++ -x c++), which the CPU tests use
-// to check the arithmetic without a card.  Products from Fp2 upward are
-// __noinline__ and the long loops are not unrolled, to keep nvcc's compile
-// time and the code size of the Miller kernel bounded.
+// Two ways to run a lane:
+//
+// - One thread a lane (the psi and G1 membership checks, the segment and
+//   G2 trees, the affine conversion, the final exponentiation): the tower
+//   and curve routines below on values in the thread's registers and stack.
+//   Products from Fp2 upward, and the G1 curve routines' Fp product, are
+//   called rather than inlined, to bound the code size and nvcc's time.
+// - A group of threads a lane (the scalar multiplications, the Miller loop,
+//   the Fq12 product tree): the lane's state lives in shared memory, and
+//   each step of its formula sequence runs from a tape.  The tower and curve
+//   routines are templates over the base field, so the same source, run
+//   once on the host on traced values (TV), records a step as Fp
+//   operations; a scheduler cuts them into levels of operations that do not
+//   depend on each other, lays each level out over the group's threads and
+//   gives every value a shared-memory slot (csrc/bls_tapes.cc hands the
+//   tapes to the card).  Thread t of the group runs positions t, t + width,
+//   ... of a level in order, then the group syncs.  The products and their
+//   values are those of the one-thread formulas; only where they run
+//   differs.
+//
+// Everything a kernel computes per lane is a function here, so the same
+// code also compiles as host C++ (g++ -x c++), which the CPU tests use to
+// check the arithmetic without a card: a group's threads run one after
+// another on the host, in an order the tests can reverse.
 
 #pragma once
 #include <cstdint>
 
 #ifndef __CUDACC__
+#include <algorithm>
+#include <vector>
 #define __device__
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
@@ -34,10 +57,8 @@ namespace bls {
 typedef uint32_t u32;
 typedef uint64_t u64;
 
-struct Fp { u32 w[12]; };
-struct Fp2 { Fp c[2]; };
-struct Fp6 { Fp2 c[3]; };
-struct Fp12 { Fp6 c[2]; };
+// 16-byte aligned, so that a slot in shared memory loads as three vectors
+struct alignas(16) Fp { u32 w[12]; };
 
 __constant__ u32 P_W[12] = {
     0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
@@ -51,7 +72,7 @@ __constant__ u32 PM2_W[12] = {
     0xffffaaa9u, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
     0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
 // -p^-1 mod 2^32
-__constant__ u32 NP32 = 0xfffcfffdu;
+#define NP32 0xfffcfffdu
 // psi constants (Montgomery): c_x = xi^-((p-1)/3), c_y = xi^-((p-1)/2)
 __constant__ u32 PSI_CX_W[2][12] = {
     {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u,
@@ -83,32 +104,225 @@ extern unsigned long long bls_fp_mul_count;
 // ---- Fp ---------------------------------------------------------------------
 
 __device__ __forceinline__ void fp_zero(Fp& r) {
+#pragma unroll
     for (int i = 0; i < 12; i++) r.w[i] = 0;
 }
 __device__ __forceinline__ void fp_one(Fp& r) {
+#pragma unroll
     for (int i = 0; i < 12; i++) r.w[i] = ONE_W[i];
 }
 __device__ __forceinline__ bool fp_is_zero(const Fp& a) {
     u32 acc = 0;
+#pragma unroll
     for (int i = 0; i < 12; i++) acc |= a.w[i];
     return acc == 0;
 }
 
-// r = s - p if s >= p else s, for s < 2^384 (words in t)
+// r = s - p if s >= p else s, for s < 2^384 (words in s)
 __device__ __forceinline__ void fp_reduce_once(Fp& r, const u32* s) {
     u32 d[12];
     u64 br = 0;
+#pragma unroll
     for (int i = 0; i < 12; i++) {
         u64 t = (u64)s[i] - P_W[i] - br;
         d[i] = (u32)t;
         br = (t >> 63) & 1;
     }
+#pragma unroll
     for (int i = 0; i < 12; i++) r.w[i] = br ? s[i] : d[i];
 }
 
-__device__ __noinline__ void fp_add(Fp& r, const Fp& a, const Fp& b) {
+// The linear operations a tape holds (OP_LIN): r = X + Y with X = x or 0
+// and Y = y or p - y, by these flags
+enum LinFlags { LIN_X = 1, LIN_NEG_Y = 2 };
+
+#ifdef __CUDACC__
+// The card's adds and subtracts: PTX carry chains, each one asm statement.
+__device__ __forceinline__ void fp_add(Fp& r, const Fp& a, const Fp& b) {
+    u32 s[12], d[12], bw;
+#pragma unroll
+    for (int j = 0; j < 12; j++) s[j] = a.w[j];
+    asm("{\n\t"
+        "add.cc.u32 %0, %0, %12;\n\t"
+        "addc.cc.u32 %1, %1, %13;\n\t"
+        "addc.cc.u32 %2, %2, %14;\n\t"
+        "addc.cc.u32 %3, %3, %15;\n\t"
+        "addc.cc.u32 %4, %4, %16;\n\t"
+        "addc.cc.u32 %5, %5, %17;\n\t"
+        "addc.cc.u32 %6, %6, %18;\n\t"
+        "addc.cc.u32 %7, %7, %19;\n\t"
+        "addc.cc.u32 %8, %8, %20;\n\t"
+        "addc.cc.u32 %9, %9, %21;\n\t"
+        "addc.cc.u32 %10, %10, %22;\n\t"
+        "addc.u32 %11, %11, %23;"
+        "\n\t}"
+        : "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3]), "+r"(s[4]), "+r"(s[5]),
+          "+r"(s[6]), "+r"(s[7]), "+r"(s[8]), "+r"(s[9]), "+r"(s[10]), "+r"(s[11])
+        : "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]), "r"(b.w[4]), "r"(b.w[5]),
+          "r"(b.w[6]), "r"(b.w[7]), "r"(b.w[8]), "r"(b.w[9]), "r"(b.w[10]), "r"(b.w[11]));
+    // a + b < 2p < 2^382: subtract p unless that borrows
+    asm("{\n\t"
+        "sub.cc.u32 %0, %13, 0xffffaaab;\n\t"
+        "subc.cc.u32 %1, %14, 0xb9feffff;\n\t"
+        "subc.cc.u32 %2, %15, 0xb153ffff;\n\t"
+        "subc.cc.u32 %3, %16, 0x1eabfffe;\n\t"
+        "subc.cc.u32 %4, %17, 0xf6b0f624;\n\t"
+        "subc.cc.u32 %5, %18, 0x6730d2a0;\n\t"
+        "subc.cc.u32 %6, %19, 0xf38512bf;\n\t"
+        "subc.cc.u32 %7, %20, 0x64774b84;\n\t"
+        "subc.cc.u32 %8, %21, 0x434bacd7;\n\t"
+        "subc.cc.u32 %9, %22, 0x4b1ba7b6;\n\t"
+        "subc.cc.u32 %10, %23, 0x397fe69a;\n\t"
+        "subc.cc.u32 %11, %24, 0x1a0111ea;\n\t"
+        "mov.u32 %12, 0;\n\t"
+        "subc.u32 %12, %12, 0;"
+        "\n\t}"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]),
+          "=r"(d[6]), "=r"(d[7]), "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]), "=r"(bw)
+        : "r"(s[0]), "r"(s[1]), "r"(s[2]), "r"(s[3]), "r"(s[4]), "r"(s[5]),
+          "r"(s[6]), "r"(s[7]), "r"(s[8]), "r"(s[9]), "r"(s[10]), "r"(s[11]));
+#pragma unroll
+    for (int j = 0; j < 12; j++) r.w[j] = bw ? s[j] : d[j];
+}
+
+__device__ __forceinline__ void fp_sub(Fp& r, const Fp& a, const Fp& b) {
+    u32 d[12], bw;
+#pragma unroll
+    for (int j = 0; j < 12; j++) d[j] = a.w[j];
+    asm("{\n\t"
+        "sub.cc.u32 %0, %0, %13;\n\t"
+        "subc.cc.u32 %1, %1, %14;\n\t"
+        "subc.cc.u32 %2, %2, %15;\n\t"
+        "subc.cc.u32 %3, %3, %16;\n\t"
+        "subc.cc.u32 %4, %4, %17;\n\t"
+        "subc.cc.u32 %5, %5, %18;\n\t"
+        "subc.cc.u32 %6, %6, %19;\n\t"
+        "subc.cc.u32 %7, %7, %20;\n\t"
+        "subc.cc.u32 %8, %8, %21;\n\t"
+        "subc.cc.u32 %9, %9, %22;\n\t"
+        "subc.cc.u32 %10, %10, %23;\n\t"
+        "subc.cc.u32 %11, %11, %24;\n\t"
+        "mov.u32 %12, 0;\n\t"
+        "subc.u32 %12, %12, 0;"
+        "\n\t}"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "=r"(bw)
+        : "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]), "r"(b.w[4]), "r"(b.w[5]),
+          "r"(b.w[6]), "r"(b.w[7]), "r"(b.w[8]), "r"(b.w[9]), "r"(b.w[10]), "r"(b.w[11]));
+    // a < b: add p back (bw is all ones)
+    asm("{\n\t"
+        ".reg .u32 k;\n\t"
+        "and.b32 k, %12, 0xffffaaab;\n\t"
+        "add.cc.u32 %0, %0, k;\n\t"
+        "and.b32 k, %12, 0xb9feffff;\n\t"
+        "addc.cc.u32 %1, %1, k;\n\t"
+        "and.b32 k, %12, 0xb153ffff;\n\t"
+        "addc.cc.u32 %2, %2, k;\n\t"
+        "and.b32 k, %12, 0x1eabfffe;\n\t"
+        "addc.cc.u32 %3, %3, k;\n\t"
+        "and.b32 k, %12, 0xf6b0f624;\n\t"
+        "addc.cc.u32 %4, %4, k;\n\t"
+        "and.b32 k, %12, 0x6730d2a0;\n\t"
+        "addc.cc.u32 %5, %5, k;\n\t"
+        "and.b32 k, %12, 0xf38512bf;\n\t"
+        "addc.cc.u32 %6, %6, k;\n\t"
+        "and.b32 k, %12, 0x64774b84;\n\t"
+        "addc.cc.u32 %7, %7, k;\n\t"
+        "and.b32 k, %12, 0x434bacd7;\n\t"
+        "addc.cc.u32 %8, %8, k;\n\t"
+        "and.b32 k, %12, 0x4b1ba7b6;\n\t"
+        "addc.cc.u32 %9, %9, k;\n\t"
+        "and.b32 k, %12, 0x397fe69a;\n\t"
+        "addc.cc.u32 %10, %10, k;\n\t"
+        "and.b32 k, %12, 0x1a0111ea;\n\t"
+        "addc.u32 %11, %11, k;"
+        "\n\t}"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11])
+        : "r"(bw));
+#pragma unroll
+    for (int j = 0; j < 12; j++) r.w[j] = d[j];
+}
+
+// X + Y mod p with X = x or 0 and Y = y or p - y (LinFlags): every linear
+// operation of a tape in one code path, so a level's threads do not
+// diverge.  s = X + (y or ~y + 1) carries c1 (for -y: no borrow); then
+// u = s - p (an add: s - p as s + ~p + 1, carry c2: s >= p) or u = s + p;
+// the result is u when s >= p, or when X - y borrowed.
+__device__ __forceinline__ void fp_lin(Fp& r, const Fp& x, const Fp& y, int flags) {
+    const u32 m = flags & LIN_NEG_Y ? 0xffffffffu : 0u, keep = flags & LIN_X ? 0xffffffffu : 0u;
+    u32 s[12], yy[12], u[12], c1, c2;
+#pragma unroll
+    for (int j = 0; j < 12; j++) {
+        s[j] = x.w[j] & keep;
+        yy[j] = y.w[j] ^ m;
+    }
+    asm("{\n\t"
+        "add.cc.u32 %12, %25, 0xffffffff;\n\t"
+        "addc.cc.u32 %0, %0, %13;\n\t"
+        "addc.cc.u32 %1, %1, %14;\n\t"
+        "addc.cc.u32 %2, %2, %15;\n\t"
+        "addc.cc.u32 %3, %3, %16;\n\t"
+        "addc.cc.u32 %4, %4, %17;\n\t"
+        "addc.cc.u32 %5, %5, %18;\n\t"
+        "addc.cc.u32 %6, %6, %19;\n\t"
+        "addc.cc.u32 %7, %7, %20;\n\t"
+        "addc.cc.u32 %8, %8, %21;\n\t"
+        "addc.cc.u32 %9, %9, %22;\n\t"
+        "addc.cc.u32 %10, %10, %23;\n\t"
+        "addc.cc.u32 %11, %11, %24;\n\t"
+        "mov.u32 %12, 0;\n\t"
+        "addc.u32 %12, %12, 0;"
+        "\n\t}"
+        : "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3]), "+r"(s[4]), "+r"(s[5]),
+          "+r"(s[6]), "+r"(s[7]), "+r"(s[8]), "+r"(s[9]), "+r"(s[10]), "+r"(s[11]), "=r"(c1)
+        : "r"(yy[0]), "r"(yy[1]), "r"(yy[2]), "r"(yy[3]), "r"(yy[4]), "r"(yy[5]),
+          "r"(yy[6]), "r"(yy[7]), "r"(yy[8]), "r"(yy[9]), "r"(yy[10]), "r"(yy[11]), "r"(m & 1u));
+    asm("{\n\t"
+        ".reg .u32 k;\n\t"
+        "add.cc.u32 %12, %26, 0xffffffff;\n\t"
+        "xor.b32 k, %25, 0xffffaaab;\n\t"
+        "addc.cc.u32 %0, %13, k;\n\t"
+        "xor.b32 k, %25, 0xb9feffff;\n\t"
+        "addc.cc.u32 %1, %14, k;\n\t"
+        "xor.b32 k, %25, 0xb153ffff;\n\t"
+        "addc.cc.u32 %2, %15, k;\n\t"
+        "xor.b32 k, %25, 0x1eabfffe;\n\t"
+        "addc.cc.u32 %3, %16, k;\n\t"
+        "xor.b32 k, %25, 0xf6b0f624;\n\t"
+        "addc.cc.u32 %4, %17, k;\n\t"
+        "xor.b32 k, %25, 0x6730d2a0;\n\t"
+        "addc.cc.u32 %5, %18, k;\n\t"
+        "xor.b32 k, %25, 0xf38512bf;\n\t"
+        "addc.cc.u32 %6, %19, k;\n\t"
+        "xor.b32 k, %25, 0x64774b84;\n\t"
+        "addc.cc.u32 %7, %20, k;\n\t"
+        "xor.b32 k, %25, 0x434bacd7;\n\t"
+        "addc.cc.u32 %8, %21, k;\n\t"
+        "xor.b32 k, %25, 0x4b1ba7b6;\n\t"
+        "addc.cc.u32 %9, %22, k;\n\t"
+        "xor.b32 k, %25, 0x397fe69a;\n\t"
+        "addc.cc.u32 %10, %23, k;\n\t"
+        "xor.b32 k, %25, 0x1a0111ea;\n\t"
+        "addc.cc.u32 %11, %24, k;\n\t"
+        "mov.u32 %12, 0;\n\t"
+        "addc.u32 %12, %12, 0;"
+        "\n\t}"
+        : "=r"(u[0]), "=r"(u[1]), "=r"(u[2]), "=r"(u[3]), "=r"(u[4]), "=r"(u[5]),
+          "=r"(u[6]), "=r"(u[7]), "=r"(u[8]), "=r"(u[9]), "=r"(u[10]), "=r"(u[11]), "=r"(c2)
+        : "r"(s[0]), "r"(s[1]), "r"(s[2]), "r"(s[3]), "r"(s[4]), "r"(s[5]),
+          "r"(s[6]), "r"(s[7]), "r"(s[8]), "r"(s[9]), "r"(s[10]), "r"(s[11]), "r"(~m),
+          "r"(~m & 1u));
+    const bool use_u = m ? c1 == 0 : c2 != 0;
+#pragma unroll
+    for (int j = 0; j < 12; j++) r.w[j] = use_u ? u[j] : s[j];
+}
+#else
+// The host build's adds and subtracts: 64-bit accumulators
+inline void fp_add(Fp& r, const Fp& a, const Fp& b) {
     u32 s[12];
     u64 c = 0;
+#pragma unroll
     for (int i = 0; i < 12; i++) {
         c += (u64)a.w[i] + b.w[i];
         s[i] = (u32)c;
@@ -117,9 +331,10 @@ __device__ __noinline__ void fp_add(Fp& r, const Fp& a, const Fp& b) {
     fp_reduce_once(r, s);      // a + b < 2p < 2^382: no carry out
 }
 
-__device__ __noinline__ void fp_sub(Fp& r, const Fp& a, const Fp& b) {
+inline void fp_sub(Fp& r, const Fp& a, const Fp& b) {
     u32 d[12];
     u64 br = 0;
+#pragma unroll
     for (int i = 0; i < 12; i++) {
         u64 t = (u64)a.w[i] - b.w[i] - br;
         d[i] = (u32)t;
@@ -127,6 +342,7 @@ __device__ __noinline__ void fp_sub(Fp& r, const Fp& a, const Fp& b) {
     }
     u32 mask = br ? 0xffffffffu : 0u;   // a < b: add p back
     u64 c = 0;
+#pragma unroll
     for (int i = 0; i < 12; i++) {
         c += (u64)d[i] + (P_W[i] & mask);
         r.w[i] = (u32)c;
@@ -134,18 +350,151 @@ __device__ __noinline__ void fp_sub(Fp& r, const Fp& a, const Fp& b) {
     }
 }
 
+// X + Y mod p with X = x or 0 and Y = y or p - y (LinFlags)
+inline void fp_lin(Fp& r, const Fp& x, const Fp& y, int flags) {
+    u32 s[12];
+    u64 br = 0, c = 0;
+    const u32 neg = flags & LIN_NEG_Y ? 0xffffffffu : 0u, keep = flags & LIN_X ? 0xffffffffu : 0u;
+#pragma unroll
+    for (int i = 0; i < 12; i++) {
+        u64 t = (u64)(P_W[i] & neg) - (y.w[i] & neg) - br;     // p - y, or 0
+        br = (t >> 63) & 1;
+        c += (u64)(x.w[i] & keep) + ((u32)t | (y.w[i] & ~neg));
+        s[i] = (u32)c;
+        c >>= 32;
+    }
+    fp_reduce_once(r, s);      // X + Y < 2p
+}
+#endif
+
 __device__ __forceinline__ void fp_neg(Fp& r, const Fp& a) {
     Fp z;
     fp_zero(z);
     fp_sub(r, z, a);
 }
 
-// CIOS Montgomery product a*b*2^-384 mod p
-__device__ __noinline__ void fp_mul(Fp& r, const Fp& a, const Fp& b) {
+#ifdef __CUDACC__
+// CIOS Montgomery product a*b*2^-384 mod p in registers: per word b_i of b,
+// t += a*b_i as a carry chain of low halves and one of high halves, then
+// t += m*p with m = t_0 * (-p^-1) and a shift by one word.  Each chain is
+// one asm statement (PTX keeps the carry flag only inside a statement);
+// ptxas interleaves the four chains of a row.  p < 2^381 keeps t below 2^414,
+// so 13 words hold it and no chain carries out of its last word.
+__device__ __forceinline__ void fp_mul(Fp& r, const Fp& a, const Fp& b) {
+    u32 t[13];
+#pragma unroll
+    for (int j = 0; j < 13; j++) t[j] = 0;
+#pragma unroll
+    for (int i = 0; i < 12; i++) {
+        u32 bi = b.w[i];
+        asm("{\n\t"
+        "mad.lo.cc.u32 %0, %13, %25, %0;\n\t"
+        "madc.lo.cc.u32 %1, %14, %25, %1;\n\t"
+        "madc.lo.cc.u32 %2, %15, %25, %2;\n\t"
+        "madc.lo.cc.u32 %3, %16, %25, %3;\n\t"
+        "madc.lo.cc.u32 %4, %17, %25, %4;\n\t"
+        "madc.lo.cc.u32 %5, %18, %25, %5;\n\t"
+        "madc.lo.cc.u32 %6, %19, %25, %6;\n\t"
+        "madc.lo.cc.u32 %7, %20, %25, %7;\n\t"
+        "madc.lo.cc.u32 %8, %21, %25, %8;\n\t"
+        "madc.lo.cc.u32 %9, %22, %25, %9;\n\t"
+        "madc.lo.cc.u32 %10, %23, %25, %10;\n\t"
+        "madc.lo.cc.u32 %11, %24, %25, %11;\n\t"
+        "addc.u32 %12, %12, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+          "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
+        : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]), "r"(a.w[5]),
+          "r"(a.w[6]), "r"(a.w[7]), "r"(a.w[8]), "r"(a.w[9]), "r"(a.w[10]), "r"(a.w[11]), "r"(bi));
+        asm("{\n\t"
+        "mad.hi.cc.u32 %0, %12, %24, %0;\n\t"
+        "madc.hi.cc.u32 %1, %13, %24, %1;\n\t"
+        "madc.hi.cc.u32 %2, %14, %24, %2;\n\t"
+        "madc.hi.cc.u32 %3, %15, %24, %3;\n\t"
+        "madc.hi.cc.u32 %4, %16, %24, %4;\n\t"
+        "madc.hi.cc.u32 %5, %17, %24, %5;\n\t"
+        "madc.hi.cc.u32 %6, %18, %24, %6;\n\t"
+        "madc.hi.cc.u32 %7, %19, %24, %7;\n\t"
+        "madc.hi.cc.u32 %8, %20, %24, %8;\n\t"
+        "madc.hi.cc.u32 %9, %21, %24, %9;\n\t"
+        "madc.hi.cc.u32 %10, %22, %24, %10;\n\t"
+        "madc.hi.u32 %11, %23, %24, %11;"
+        "\n\t}"
+        : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+          "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
+        : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]), "r"(a.w[5]),
+          "r"(a.w[6]), "r"(a.w[7]), "r"(a.w[8]), "r"(a.w[9]), "r"(a.w[10]), "r"(a.w[11]), "r"(bi));
+        u32 m = t[0] * NP32;
+        asm("{\n\t"
+        "mad.lo.cc.u32 %0, %13, 0xffffaaab, %0;\n\t"
+        "madc.lo.cc.u32 %1, %13, 0xb9feffff, %1;\n\t"
+        "madc.lo.cc.u32 %2, %13, 0xb153ffff, %2;\n\t"
+        "madc.lo.cc.u32 %3, %13, 0x1eabfffe, %3;\n\t"
+        "madc.lo.cc.u32 %4, %13, 0xf6b0f624, %4;\n\t"
+        "madc.lo.cc.u32 %5, %13, 0x6730d2a0, %5;\n\t"
+        "madc.lo.cc.u32 %6, %13, 0xf38512bf, %6;\n\t"
+        "madc.lo.cc.u32 %7, %13, 0x64774b84, %7;\n\t"
+        "madc.lo.cc.u32 %8, %13, 0x434bacd7, %8;\n\t"
+        "madc.lo.cc.u32 %9, %13, 0x4b1ba7b6, %9;\n\t"
+        "madc.lo.cc.u32 %10, %13, 0x397fe69a, %10;\n\t"
+        "madc.lo.cc.u32 %11, %13, 0x1a0111ea, %11;\n\t"
+        "addc.u32 %12, %12, 0;"
+        "\n\t}"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+          "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
+        : "r"(m));
+        asm("{\n\t"
+        "mad.hi.cc.u32 %0, %12, 0xffffaaab, %0;\n\t"
+        "madc.hi.cc.u32 %1, %12, 0xb9feffff, %1;\n\t"
+        "madc.hi.cc.u32 %2, %12, 0xb153ffff, %2;\n\t"
+        "madc.hi.cc.u32 %3, %12, 0x1eabfffe, %3;\n\t"
+        "madc.hi.cc.u32 %4, %12, 0xf6b0f624, %4;\n\t"
+        "madc.hi.cc.u32 %5, %12, 0x6730d2a0, %5;\n\t"
+        "madc.hi.cc.u32 %6, %12, 0xf38512bf, %6;\n\t"
+        "madc.hi.cc.u32 %7, %12, 0x64774b84, %7;\n\t"
+        "madc.hi.cc.u32 %8, %12, 0x434bacd7, %8;\n\t"
+        "madc.hi.cc.u32 %9, %12, 0x4b1ba7b6, %9;\n\t"
+        "madc.hi.cc.u32 %10, %12, 0x397fe69a, %10;\n\t"
+        "madc.hi.u32 %11, %12, 0x1a0111ea, %11;"
+        "\n\t}"
+        : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+          "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
+        : "r"(m));
+#pragma unroll
+        for (int j = 0; j < 12; j++) t[j] = t[j + 1];
+        t[12] = 0;
+    }
+    // t < 2p: subtract p once unless that borrows
+    u32 d[12], bw;
+    asm("{\n\t"
+        "sub.cc.u32 %0, %13, 0xffffaaab;\n\t"
+        "subc.cc.u32 %1, %14, 0xb9feffff;\n\t"
+        "subc.cc.u32 %2, %15, 0xb153ffff;\n\t"
+        "subc.cc.u32 %3, %16, 0x1eabfffe;\n\t"
+        "subc.cc.u32 %4, %17, 0xf6b0f624;\n\t"
+        "subc.cc.u32 %5, %18, 0x6730d2a0;\n\t"
+        "subc.cc.u32 %6, %19, 0xf38512bf;\n\t"
+        "subc.cc.u32 %7, %20, 0x64774b84;\n\t"
+        "subc.cc.u32 %8, %21, 0x434bacd7;\n\t"
+        "subc.cc.u32 %9, %22, 0x4b1ba7b6;\n\t"
+        "subc.cc.u32 %10, %23, 0x397fe69a;\n\t"
+        "subc.cc.u32 %11, %24, 0x1a0111ea;\n\t"
+        "mov.u32 %12, 0;\n\t"
+        "subc.u32 %12, %12, 0;"
+        "\n\t}"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]),
+          "=r"(d[6]), "=r"(d[7]), "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]), "=r"(bw)
+        : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]),
+          "r"(t[6]), "r"(t[7]), "r"(t[8]), "r"(t[9]), "r"(t[10]), "r"(t[11]));
+#pragma unroll
+    for (int j = 0; j < 12; j++) r.w[j] = bw ? t[j] : d[j];
+}
+#endif
+#ifndef __CUDACC__
+// The host build's product: the same CIOS rows in 64-bit accumulators
+inline void fp_mul(Fp& r, const Fp& a, const Fp& b) {
     BLS_COUNT_FP_MUL();
-    u32 t[14];
-    for (int i = 0; i < 14; i++) t[i] = 0;
-#pragma unroll 1
+    u32 t[14] = {0};
     for (int i = 0; i < 12; i++) {
         u64 c = 0;
         u32 bi = b.w[i];
@@ -170,9 +519,10 @@ __device__ __noinline__ void fp_mul(Fp& r, const Fp& a, const Fp& b) {
     }
     fp_reduce_once(r, t);      // t < 2p, t[12] == 0
 }
+#endif
 
 // k*a for a small positive k, by double-and-add over k's bits
-__device__ __noinline__ void fp_scale(Fp& r, const Fp& a, int k) {
+__device__ __forceinline__ void fp_scale(Fp& r, const Fp& a, int k) {
     Fp acc = a;
     int top = 0;
     while ((k >> (top + 1)) != 0) top++;
@@ -183,36 +533,48 @@ __device__ __noinline__ void fp_scale(Fp& r, const Fp& a, int k) {
     r = acc;
 }
 
-// ---- Fp2 = Fp[u]/(u^2 + 1) --------------------------------------------------
+// ---- Fp2 = Fp[u]/(u^2 + 1), Fp6 = Fp2[v]/(v^3 - xi), Fp12 = Fp6[w]/(w^2 - v) --
+//
+// Templates over the base field B: Fp computes, TV records.
+
+template <class B> struct Fp2T { B c[2]; };
+template <class B> struct Fp6T { Fp2T<B> c[3]; };
+template <class B> struct Fp12T { Fp6T<B> c[2]; };
+typedef Fp2T<Fp> Fp2;
+typedef Fp6T<Fp> Fp6;
+typedef Fp12T<Fp> Fp12;
 
 __device__ __forceinline__ void fp2_zero(Fp2& r) { fp_zero(r.c[0]); fp_zero(r.c[1]); }
 __device__ __forceinline__ void fp2_one(Fp2& r) { fp_one(r.c[0]); fp_zero(r.c[1]); }
 __device__ __forceinline__ bool fp2_is_zero(const Fp2& a) {
     return fp_is_zero(a.c[0]) && fp_is_zero(a.c[1]);
 }
-__device__ __forceinline__ void fp2_add(Fp2& r, const Fp2& a, const Fp2& b) {
+template <class B> __device__ __forceinline__ void fp2_add(Fp2T<B>& r, const Fp2T<B>& a,
+                                                         const Fp2T<B>& b) {
     fp_add(r.c[0], a.c[0], b.c[0]);
     fp_add(r.c[1], a.c[1], b.c[1]);
 }
-__device__ __forceinline__ void fp2_sub(Fp2& r, const Fp2& a, const Fp2& b) {
+template <class B> __device__ __forceinline__ void fp2_sub(Fp2T<B>& r, const Fp2T<B>& a,
+                                                         const Fp2T<B>& b) {
     fp_sub(r.c[0], a.c[0], b.c[0]);
     fp_sub(r.c[1], a.c[1], b.c[1]);
 }
-__device__ __forceinline__ void fp2_neg(Fp2& r, const Fp2& a) {
+template <class B> __device__ __forceinline__ void fp2_neg(Fp2T<B>& r, const Fp2T<B>& a) {
     fp_neg(r.c[0], a.c[0]);
     fp_neg(r.c[1], a.c[1]);
 }
-__device__ __forceinline__ void fp2_scale(Fp2& r, const Fp2& a, int k) {
+template <class B> __device__ __forceinline__ void fp2_scale(Fp2T<B>& r, const Fp2T<B>& a, int k) {
     fp_scale(r.c[0], a.c[0], k);
     fp_scale(r.c[1], a.c[1], k);
 }
-__device__ __forceinline__ void fp2_conj(Fp2& r, const Fp2& a) {
+template <class B> __device__ __forceinline__ void fp2_conj(Fp2T<B>& r, const Fp2T<B>& a) {
     r.c[0] = a.c[0];
     fp_neg(r.c[1], a.c[1]);
 }
 // Karatsuba: (a + bu)(c + du) = ac - bd + ((a + b)(c + d) - ac - bd)u
-__device__ __noinline__ void fp2_mul(Fp2& r, const Fp2& x, const Fp2& y) {
-    Fp t0, t1, t2, sa, sb;
+template <class B> __device__ __noinline__ void fp2_mul(Fp2T<B>& r, const Fp2T<B>& x,
+                                                      const Fp2T<B>& y) {
+    B t0, t1, t2, sa, sb;
     fp_mul(t0, x.c[0], y.c[0]);
     fp_mul(t1, x.c[1], y.c[1]);
     fp_add(sa, x.c[0], x.c[1]);
@@ -223,29 +585,31 @@ __device__ __noinline__ void fp2_mul(Fp2& r, const Fp2& x, const Fp2& y) {
     fp_sub(r.c[1], t2, t1);
 }
 // (a + bu) * s for an Fp scalar s
-__device__ __forceinline__ void fp2_mul_fp(Fp2& r, const Fp2& x, const Fp& s) {
+template <class B> __device__ __forceinline__ void fp2_mul_fp(Fp2T<B>& r, const Fp2T<B>& x,
+                                                            const B& s) {
     fp_mul(r.c[0], x.c[0], s);
     fp_mul(r.c[1], x.c[1], s);
 }
 // times xi = 1 + u: (a - b) + (a + b)u
-__device__ __forceinline__ void fp2_mul_xi(Fp2& r, const Fp2& x) {
-    Fp t;
+template <class B> __device__ __forceinline__ void fp2_mul_xi(Fp2T<B>& r, const Fp2T<B>& x) {
+    B t;
     fp_sub(t, x.c[0], x.c[1]);
     fp_add(r.c[1], x.c[0], x.c[1]);
     r.c[0] = t;
 }
 
-// ---- Fp6 = Fp2[v]/(v^3 - xi), Fp12 = Fp6[w]/(w^2 - v) ------------------------
-
-__device__ __forceinline__ void fp6_add(Fp6& r, const Fp6& a, const Fp6& b) {
+template <class B> __device__ __forceinline__ void fp6_add(Fp6T<B>& r, const Fp6T<B>& a,
+                                                         const Fp6T<B>& b) {
     for (int i = 0; i < 3; i++) fp2_add(r.c[i], a.c[i], b.c[i]);
 }
-__device__ __forceinline__ void fp6_sub(Fp6& r, const Fp6& a, const Fp6& b) {
+template <class B> __device__ __forceinline__ void fp6_sub(Fp6T<B>& r, const Fp6T<B>& a,
+                                                         const Fp6T<B>& b) {
     for (int i = 0; i < 3; i++) fp2_sub(r.c[i], a.c[i], b.c[i]);
 }
 // Karatsuba (ops/bls12_381.fp6_mul of the JAX package): 6 Fp2 products
-__device__ __noinline__ void fp6_mul(Fp6& r, const Fp6& a, const Fp6& b) {
-    Fp2 t0, t1, t2, sa, sb, m, c0, c1, c2;
+template <class B> __device__ __noinline__ void fp6_mul(Fp6T<B>& r, const Fp6T<B>& a,
+                                                      const Fp6T<B>& b) {
+    Fp2T<B> t0, t1, t2, sa, sb, m, c0, c1, c2;
     fp2_mul(t0, a.c[0], b.c[0]);
     fp2_mul(t1, a.c[1], b.c[1]);
     fp2_mul(t2, a.c[2], b.c[2]);
@@ -274,8 +638,9 @@ __device__ __noinline__ void fp6_mul(Fp6& r, const Fp6& a, const Fp6& b) {
     r.c[2] = c2;
 }
 // a * (b0 + b1 v): 5 Fp2 products
-__device__ __noinline__ void fp6_mul_01(Fp6& r, const Fp6& a, const Fp2& b0, const Fp2& b1) {
-    Fp2 t0, t1, s, u, c0, c1, c2;
+template <class B> __device__ __noinline__ void fp6_mul_01(Fp6T<B>& r, const Fp6T<B>& a,
+                                                         const Fp2T<B>& b0, const Fp2T<B>& b1) {
+    Fp2T<B> t0, t1, s, u, c0, c1, c2;
     fp2_mul(t0, a.c[0], b0);
     fp2_mul(t1, a.c[1], b1);
     fp2_add(s, a.c[1], a.c[2]);
@@ -297,8 +662,9 @@ __device__ __noinline__ void fp6_mul_01(Fp6& r, const Fp6& a, const Fp2& b0, con
     r.c[2] = c2;
 }
 // a * (b1 v) = (xi a2 b1, a0 b1, a1 b1): 3 Fp2 products
-__device__ __noinline__ void fp6_mul_1(Fp6& r, const Fp6& a, const Fp2& b1) {
-    Fp2 c0, c1, c2;
+template <class B> __device__ __noinline__ void fp6_mul_1(Fp6T<B>& r, const Fp6T<B>& a,
+                                                        const Fp2T<B>& b1) {
+    Fp2T<B> c0, c1, c2;
     fp2_mul(c0, a.c[2], b1);
     fp2_mul_xi(c0, c0);
     fp2_mul(c1, a.c[0], b1);
@@ -308,16 +674,17 @@ __device__ __noinline__ void fp6_mul_1(Fp6& r, const Fp6& a, const Fp2& b1) {
     r.c[2] = c2;
 }
 // (c0, c1, c2) * v = (xi c2, c0, c1)
-__device__ __forceinline__ void fp6_mul_v(Fp6& r, const Fp6& a) {
-    Fp2 t;
+template <class B> __device__ __forceinline__ void fp6_mul_v(Fp6T<B>& r, const Fp6T<B>& a) {
+    Fp2T<B> t;
     fp2_mul_xi(t, a.c[2]);
     r.c[2] = a.c[1];
     r.c[1] = a.c[0];
     r.c[0] = t;
 }
 // Karatsuba over w: c0 = a0b0 + v a1b1, c1 = (a0 + a1)(b0 + b1) - a0b0 - a1b1
-__device__ __noinline__ void fp12_mul(Fp12& r, const Fp12& a, const Fp12& b) {
-    Fp6 t0, t1, sa, sb, c1;
+template <class B> __device__ __noinline__ void fp12_mul(Fp12T<B>& r, const Fp12T<B>& a,
+                                                       const Fp12T<B>& b) {
+    Fp6T<B> t0, t1, sa, sb, c1;
     fp6_mul(t0, a.c[0], b.c[0]);
     fp6_mul(t1, a.c[1], b.c[1]);
     fp6_add(sa, a.c[0], a.c[1]);
@@ -333,14 +700,14 @@ __device__ __forceinline__ void fp12_one(Fp12& r) {
         for (int j = 0; j < 3; j++) fp2_zero(r.c[i].c[j]);
     fp_one(r.c[0].c[0].c[0]);
 }
-__device__ __forceinline__ void fp12_conj(Fp12& r, const Fp12& a) {
+template <class B> __device__ __forceinline__ void fp12_conj(Fp12T<B>& r, const Fp12T<B>& a) {
     r.c[0] = a.c[0];
     for (int j = 0; j < 3; j++) fp2_neg(r.c[1].c[j], a.c[1].c[j]);
 }
 // (a0 + a1 w)^2 = a0^2 + v a1^2 + 2 a0 a1 w, with
 // a0^2 + v a1^2 = (a0 + a1)(a0 + v a1) - a0 a1 - v a0 a1: 2 Fp6 products
-__device__ __noinline__ void fp12_sqr(Fp12& r, const Fp12& a) {
-    Fp6 ab, s, t;
+template <class B> __device__ __noinline__ void fp12_sqr(Fp12T<B>& r, const Fp12T<B>& a) {
+    Fp6T<B> ab, s, t;
     fp6_mul(ab, a.c[0], a.c[1]);
     fp6_add(s, a.c[0], a.c[1]);
     fp6_mul_v(t, a.c[1]);
@@ -363,10 +730,11 @@ __device__ __forceinline__ bool fp12_is_one(const Fp12& a) {
 // f * (a0 + a1 v + b1 v w), the Miller loop's line product: Karatsuba over
 // w with the line's sparse Fp6 halves A = a0 + a1 v and B = b1 v,
 // 5 + 3 + 5 = 13 Fp2 products
-__device__ __noinline__ void fp12_mul_line(Fp12& r, const Fp12& f, const Fp2& a0,
-                                           const Fp2& a1, const Fp2& b1) {
-    Fp6 t0, t1, s;
-    Fp2 u;
+template <class B> __device__ __noinline__ void fp12_mul_line(Fp12T<B>& r, const Fp12T<B>& f,
+                                                            const Fp2T<B>& a0, const Fp2T<B>& a1,
+                                                            const Fp2T<B>& b1) {
+    Fp6T<B> t0, t1, s;
+    Fp2T<B> u;
     fp6_mul_01(t0, f.c[0], a0, a1);
     fp6_mul_1(t1, f.c[1], b1);
     fp6_add(s, f.c[0], f.c[1]);
@@ -380,14 +748,38 @@ __device__ __noinline__ void fp12_mul_line(Fp12& r, const Fp12& f, const Fp2& a0
 
 // ---- generic field ops for the curve templates ------------------------------
 
-__device__ __forceinline__ void f_add(Fp& r, const Fp& a, const Fp& b) { fp_add(r, a, b); }
-__device__ __forceinline__ void f_add(Fp2& r, const Fp2& a, const Fp2& b) { fp2_add(r, a, b); }
-__device__ __forceinline__ void f_sub(Fp& r, const Fp& a, const Fp& b) { fp_sub(r, a, b); }
-__device__ __forceinline__ void f_sub(Fp2& r, const Fp2& a, const Fp2& b) { fp2_sub(r, a, b); }
-__device__ __forceinline__ void f_mul(Fp& r, const Fp& a, const Fp& b) { fp_mul(r, a, b); }
-__device__ __forceinline__ void f_mul(Fp2& r, const Fp2& a, const Fp2& b) { fp2_mul(r, a, b); }
-__device__ __forceinline__ void f_scale(Fp& r, const Fp& a, int k) { fp_scale(r, a, k); }
-__device__ __forceinline__ void f_scale(Fp2& r, const Fp2& a, int k) { fp2_scale(r, a, k); }
+template <class B> __device__ __forceinline__ void f_add(B& r, const B& a, const B& b) {
+    fp_add(r, a, b);
+}
+template <class B> __device__ __forceinline__ void f_add(Fp2T<B>& r, const Fp2T<B>& a,
+                                                       const Fp2T<B>& b) {
+    fp2_add(r, a, b);
+}
+template <class B> __device__ __forceinline__ void f_sub(B& r, const B& a, const B& b) {
+    fp_sub(r, a, b);
+}
+template <class B> __device__ __forceinline__ void f_sub(Fp2T<B>& r, const Fp2T<B>& a,
+                                                       const Fp2T<B>& b) {
+    fp2_sub(r, a, b);
+}
+// The one-thread curve routines over Fp call one copy of the product: the
+// same register-held code, without a copy at each of their dozens of
+// products (which overran the instruction cache)
+__device__ __noinline__ void fp_mul_call(Fp& r, const Fp& a, const Fp& b) { fp_mul(r, a, b); }
+__device__ __forceinline__ void f_mul(Fp& r, const Fp& a, const Fp& b) { fp_mul_call(r, a, b); }
+template <class B> __device__ __forceinline__ void f_mul(B& r, const B& a, const B& b) {
+    fp_mul(r, a, b);
+}
+template <class B> __device__ __forceinline__ void f_mul(Fp2T<B>& r, const Fp2T<B>& a,
+                                                       const Fp2T<B>& b) {
+    fp2_mul(r, a, b);
+}
+template <class B> __device__ __forceinline__ void f_scale(B& r, const B& a, int k) {
+    fp_scale(r, a, k);
+}
+template <class B> __device__ __forceinline__ void f_scale(Fp2T<B>& r, const Fp2T<B>& a, int k) {
+    fp2_scale(r, a, k);
+}
 __device__ __forceinline__ bool f_is_zero(const Fp& a) { return fp_is_zero(a); }
 __device__ __forceinline__ bool f_is_zero(const Fp2& a) { return fp2_is_zero(a); }
 __device__ __forceinline__ void f_zero(Fp& r) { fp_zero(r); }
@@ -429,21 +821,10 @@ template <class F> __device__ __noinline__ void jac_double(Jac<F>& r, const Jac<
     r.Z = Z3;
 }
 
-// Full Jacobian add (ec._jac_add_full), complete when either side is
-// infinity (the other side is returned, with no product), INCOMPLETE at
-// H == 0 (the callers' contract).  p_inf / q_inf: 1 or 0 for an explicit
-// flag, -1 to probe Z == 0.
-template <class F>
-__device__ __noinline__ void jac_add_full(Jac<F>& r, const Jac<F>& p, const Jac<F>& q,
-                                          int p_inf, int q_inf) {
-    if (p_inf < 0 ? f_is_zero(p.Z) : p_inf != 0) {
-        r = q;
-        return;
-    }
-    if (q_inf < 0 ? f_is_zero(q.Z) : q_inf != 0) {
-        r = p;
-        return;
-    }
+// The full Jacobian add (ec._jac_add_full) of two points that are not
+// infinity; INCOMPLETE at H == 0 (the callers' contract)
+template <class F> __device__ __noinline__ void jac_add_formula(Jac<F>& r, const Jac<F>& p,
+                                                              const Jac<F>& q) {
     F z11, z22, zs, u1, u2, z1c, z2c, zz12, h, s1, s2, hh, rv, i4, zmul, j, v, rr, tmp;
     Jac<F> o;
     f_mul(z11, p.Z, p.Z);
@@ -477,6 +858,501 @@ __device__ __noinline__ void jac_add_full(Jac<F>& r, const Jac<F>& p, const Jac<
     f_sub(o.Y, o.Y, tmp);
     r = o;
 }
+
+// Full Jacobian add, complete when either side is infinity (the other side
+// is returned, with no product).  p_inf / q_inf: 1 or 0 for an explicit
+// flag, -1 to probe Z == 0.
+template <class F>
+__device__ __forceinline__ void jac_add_full(Jac<F>& r, const Jac<F>& p, const Jac<F>& q,
+                                             int p_inf, int q_inf) {
+    if (p_inf < 0 ? f_is_zero(p.Z) : p_inf != 0) {
+        r = q;
+        return;
+    }
+    if (q_inf < 0 ? f_is_zero(q.Z) : q_inf != 0) {
+        r = p;
+        return;
+    }
+    jac_add_formula(r, p, q);
+}
+
+// ---- Miller loop steps (ops/bls12_381.py batch_miller_loop with zp, zq) ------
+//
+// The precomputation, the doubling step with its tangent line and the add
+// step with its chord line through Q, in the JAX package's operation order
+// and line scalings (the line of the doubling is scaled by zp^3, the chord's
+// by the Jacobian Zs of P and Q), so the Miller values equal it exactly.
+
+template <class B>
+__device__ __forceinline__ void miller_setup(B& xz, B& zp3, Fp2T<B>& zxq, Fp2T<B>& zyq,
+                                             Fp2T<B>& zq2, Fp2T<B>& zq3, Fp2T<B>& xzq2,
+                                             Fp2T<B>& ypq3, const B& xp, const B& yp, const B& zp,
+                                             const Fp2T<B>& xq, const Fp2T<B>& yq,
+                                             const Fp2T<B>& zq) {
+    B zp2;
+    fp_mul(zp2, zp, zp);
+    fp_mul(xz, xp, zp);
+    fp_mul(zp3, zp2, zp);
+    fp2_mul_fp(zxq, xq, zp3);
+    fp2_mul_fp(zyq, yq, zp3);
+    fp2_mul(zq2, zq, zq);
+    fp2_mul(zq3, zq2, zq);
+    fp2_mul_fp(xzq2, zq2, xz);
+    fp2_mul_fp(ypq3, zq3, yp);
+}
+
+// f <- f^2 * tangent line at T, T <- 2T
+template <class B>
+__device__ __forceinline__ void miller_dbl(Fp12T<B>& f, Fp2T<B>& X, Fp2T<B>& Y, Fp2T<B>& Z,
+                                           const B& xz, const B& yp, const B& zp3) {
+    Fp2T<B> xx, yy, zz, yz, Z3, E, xxx, xxzz, yzzz, c4, xb, t, ff, D, X3, a0, s_a1, s_b1, ey, a1,
+        b1, a0s, Y3, tmp;
+    Fp12T<B> fsq;
+    fp2_mul(xx, X, X);
+    fp2_mul(yy, Y, Y);
+    fp2_mul(zz, Z, Z);
+    fp2_mul(yz, Y, Z);
+    fp12_sqr(fsq, f);
+    fp2_scale(Z3, yz, 2);
+    fp2_scale(E, xx, 3);
+    fp2_add(xb, X, yy);
+    fp2_mul(xxx, xx, X);
+    fp2_mul(xxzz, xx, zz);
+    fp2_mul(yzzz, yz, zz);
+    fp2_mul(c4, yy, yy);
+    fp2_mul(t, xb, xb);
+    fp2_mul(ff, E, E);
+    fp2_sub(D, t, xx);
+    fp2_sub(D, D, c4);
+    fp2_scale(D, D, 2);
+    fp2_scale(tmp, D, 2);
+    fp2_sub(X3, ff, tmp);
+    fp2_scale(a0, xxx, 3);
+    fp2_scale(tmp, yy, 2);
+    fp2_sub(a0, a0, tmp);
+    fp2_scale(s_a1, xxzz, 3);
+    fp2_scale(s_b1, yzzz, 2);
+    fp2_sub(tmp, D, X3);
+    fp2_mul(ey, E, tmp);
+    fp2_mul_fp(a1, s_a1, xz);
+    fp2_neg(a1, a1);
+    fp2_mul_fp(b1, s_b1, yp);
+    fp2_mul_fp(a0s, a0, zp3);
+    fp2_scale(tmp, c4, 8);
+    fp2_sub(Y3, ey, tmp);
+    fp12_mul_line(f, fsq, a0s, a1, b1);
+    X = X3;
+    Y = Y3;
+    Z = Z3;
+}
+
+// on a set bit of |x|, after miller_dbl: f <- f * chord through T and Q,
+// T <- T + Q
+template <class B>
+__device__ __forceinline__ void miller_add(Fp12T<B>& f, Fp2T<B>& X, Fp2T<B>& Y, Fp2T<B>& Z,
+                                           const Fp2T<B>& xq, const Fp2T<B>& yq,
+                                           const Fp2T<B>& zq, const Fp2T<B>& zq2,
+                                           const Fp2T<B>& zq3, const Fp2T<B>& zxq,
+                                           const Fp2T<B>& zyq, const Fp2T<B>& xzq2,
+                                           const Fp2T<B>& ypq3) {
+    Fp2T<B> zz2, z3zq, zzz, xqzz2, u1, H, yqzzz, dl, s1, z3ah, Nl, nxq, dyq, c1a, d1a, hh, c0a,
+        I4, rvec, j, v, rr, X3a, rv, yj, Y3a, Z3a, tmp;
+    fp2_mul(zz2, Z, Z);
+    fp2_mul(z3zq, Z, zq);
+    fp2_mul(zzz, Z, zz2);
+    fp2_mul(xqzz2, xq, zz2);
+    fp2_mul(u1, X, zq2);
+    fp2_sub(H, xqzz2, u1);
+    fp2_mul(yqzzz, yq, zzz);
+    fp2_neg(tmp, H);
+    fp2_mul(dl, tmp, Z);
+    fp2_mul(s1, Y, zq3);
+    fp2_mul(z3ah, z3zq, H);
+    fp2_sub(Nl, s1, yqzzz);
+    fp2_mul(nxq, Nl, zxq);
+    fp2_mul(dyq, dl, zyq);
+    fp2_mul(c1a, Nl, xzq2);
+    fp2_neg(c1a, c1a);
+    fp2_mul(d1a, dl, ypq3);
+    fp2_mul(hh, H, H);
+    fp2_sub(c0a, nxq, dyq);
+    fp2_scale(I4, hh, 4);
+    fp2_sub(rvec, yqzzz, s1);
+    fp2_scale(rvec, rvec, 2);
+    fp12_mul_line(f, f, c0a, c1a, d1a);
+    fp2_mul(j, H, I4);
+    fp2_mul(v, u1, I4);
+    fp2_mul(rr, rvec, rvec);
+    fp2_sub(X3a, rr, j);
+    fp2_scale(tmp, v, 2);
+    fp2_sub(X3a, X3a, tmp);
+    fp2_sub(tmp, v, X3a);
+    fp2_mul(rv, rvec, tmp);
+    fp2_mul(yj, s1, j);
+    fp2_scale(tmp, yj, 2);
+    fp2_sub(Y3a, rv, tmp);
+    fp2_scale(Z3a, z3ah, 2);
+    X = X3a;
+    Y = Y3a;
+    Z = Z3a;
+}
+
+// ---- tapes ----------------------------------------------------------------------
+//
+// A tape is one step of a group lane (a Miller doubling, a Jacobian add of
+// both scalar-mul tracks, an Fq12 product, ...) as Fp operations cut into
+// levels.  An operand is a slot of the lane's shared-memory workspace: 3
+// bits select its base (absolute, the two inputs, the output and the
+// temporaries of the step, given at each run) and 13 bits its offset in Fp
+// elements.
+
+// operations as recorded (INPUT .. MOV) and as a tape holds them: MUL, LIN
+// (r = X + Y with X = a or 0 and Y = b or p - b, by the flags in k: ADD,
+// SUB, NEG and MOV in one code path) and NOP (a filler)
+enum OpKind : uint8_t { OP_INPUT, OP_MUL, OP_ADD, OP_SUB, OP_NEG, OP_MOV, OP_LIN, OP_NOP };
+
+enum LocBase { LOC_ABS = 0, LOC_IN0 = 1 << 13, LOC_IN1 = 2 << 13, LOC_OUT = 3 << 13,
+               LOC_TMP = 4 << 13 };
+
+struct alignas(8) Op {
+    uint16_t dst, a, b;
+    uint8_t kind, k;
+};
+
+enum TapeId {
+    TAPE_MILLER_SETUP, TAPE_MILLER_DBL, TAPE_MILLER_ADD,   // Miller lane, absolute slots
+    TAPE_G1_DBL, TAPE_G1_ADD, TAPE_G2_ADD,                 // in0 (+ in1) -> out
+    TAPE_G1G2_DBL, TAPE_G1G2_ADD,                          // G1 and G2 track together
+    TAPE_FQ12_MUL,                                         // in0 * in1 -> out
+    N_TAPES
+};
+
+// a tape's levels, the threads its levels are laid out for (a group of at
+// least that many runs it), and its shape
+struct TapeInfo {
+    uint16_t first_level, n_levels, width, temps, muls, rounds;
+};
+
+#define LH_TAPE_OPS 8192
+#define LH_TAPE_LEVELS 1024
+
+struct Tapes {
+    Op ops[LH_TAPE_OPS];
+    uint16_t level_start[LH_TAPE_LEVELS + 1];   // level g: ops [level_start[g], level_start[g + 1])
+    TapeInfo info[N_TAPES];
+    int n_ops, n_levels;
+    int error;                                  // nonzero: a tape did not fit its bounds
+};
+
+// Group widths (threads a lane; compile-time constants, not options).  The
+// Miller loop's levels hold up to 42 products, the Fq12 product's 54 and
+// the joint G1 and G2 scalar multiplication's 16, with linear chains beside
+// them: a warp a lane, and the block batch's lanes (at most 132 live ones)
+// one to an SM.  The G1 scalar multiplication's levels hold at most 4
+// products: 4 threads a lane, 8 lanes a warp, so that a fold of thousands of
+// lanes keeps about one warp on each of the card's schedulers and few
+// threads idle.
+#define MILLER_W 32
+#define GJ_W 32
+#define FQ12_W 32
+#define G1_W 4
+
+// Workspace layouts (Fp slots).  Miller: f, T = (X, Y, Z), the lane's
+// inputs and the setup's constants, then the temporaries.
+enum {
+    MS_F = 0, MS_T = 12, MS_XP = 18, MS_YP = 19, MS_ZP = 20, MS_XQ = 21, MS_YQ = 23, MS_ZQ = 25,
+    MS_XZ = 27, MS_ZP3 = 28, MS_ZXQ = 29, MS_ZYQ = 31, MS_ZQ2 = 33, MS_ZQ3 = 35, MS_XZQ2 = 37,
+    MS_YPQ3 = 39, MS_TMP = 41
+};
+// Scalar multiplication: the window table's 16 entries, the accumulator,
+// then the temporaries; an entry is a G1 point (X, Y, Z) and, on the joint
+// track, a G2 point (X, Y, Z in Fp2) after it.
+#define SM_ENTRY(g2) ((g2) ? 9 : 3)
+#define SM_ACC(g2) (16 * SM_ENTRY(g2))
+#define SM_TMP(g2) (17 * SM_ENTRY(g2))
+// Fq12 product: x, y, then the temporaries
+#define FQ_TMP 24
+
+// most temporaries a step may take, per lane layout (the builder fails
+// past them)
+#define MILLER_TEMPS 128
+#define GJ_TEMPS 48
+#define G1_TEMPS 16
+#define FQ12_TEMPS 144
+#define MILLER_WS (MS_TMP + MILLER_TEMPS)
+#define GJ_WS (SM_TMP(1) + GJ_TEMPS)
+#define G1_WS (SM_TMP(0) + G1_TEMPS)
+#define FQ12_WS (FQ_TMP + FQ12_TEMPS)
+
+// ---- global memory rows -----------------------------------------------------
+
+__device__ __forceinline__ void ld(Fp& r, const u32* p, long i) {
+#pragma unroll
+    for (int k = 0; k < 12; k++) r.w[k] = p[i * 12 + k];
+}
+__device__ __forceinline__ void st(u32* p, long i, const Fp& a) {
+#pragma unroll
+    for (int k = 0; k < 12; k++) p[i * 12 + k] = a.w[k];
+}
+__device__ __forceinline__ void ld(Fp2& r, const u32* p, long i) {
+    ld(r.c[0], p, 2 * i);
+    ld(r.c[1], p, 2 * i + 1);
+}
+__device__ __forceinline__ void st(u32* p, long i, const Fp2& a) {
+    st(p, 2 * i, a.c[0]);
+    st(p, 2 * i + 1, a.c[1]);
+}
+// Fp12 rows [N, 12, 12]: coefficient (c6*3 + c2)*2 + ab
+__device__ __forceinline__ void ld(Fp12& r, const u32* p, long i) {
+    for (int a = 0; a < 2; a++)
+        for (int b = 0; b < 3; b++) ld(r.c[a].c[b], p, i * 6 + a * 3 + b);
+}
+__device__ __forceinline__ void st(u32* p, long i, const Fp12& f) {
+    for (int a = 0; a < 2; a++)
+        for (int b = 0; b < 3; b++) st(p, i * 6 + a * 3 + b, f.c[a].c[b]);
+}
+template <class F> __device__ __forceinline__ void ld(Jac<F>& r, const u32* X, const u32* Y,
+                                                      const u32* Z, long i) {
+    ld(r.X, X, i);
+    ld(r.Y, Y, i);
+    ld(r.Z, Z, i);
+}
+template <class F> __device__ __forceinline__ void st(u32* X, u32* Y, u32* Z, long i,
+                                                      const Jac<F>& p) {
+    st(X, i, p.X);
+    st(Y, i, p.Y);
+    st(Z, i, p.Z);
+}
+
+// ---- group execution ----------------------------------------------------------
+//
+// A group is W threads of one warp working on one lane; t is the thread's
+// index in it and mask its threads' bits in the warp.  par(g, W, n, fn) is
+// the level loop: on the card thread t runs fn(t), fn(t + W), ... then the
+// group syncs (shared memory written in the level is visible to the next);
+// on the host one loop runs the W threads' sequences one after another, in
+// ascending or, when the tests set level_order_reversed, descending thread
+// order, so that an operation that read a slot another thread writes in the
+// same level would give another value.
+
+struct Grp {
+    int t;
+    unsigned mask;
+};
+
+#ifndef __CUDACC__
+inline bool level_order_reversed = false;
+#endif
+
+// the level loop over the group's first w threads (a tape laid out for
+// fewer threads than the group has leaves the others idle)
+template <class Fn> __device__ __forceinline__ void par(const Grp& g, int w, int n, Fn fn) {
+#ifdef __CUDACC__
+    if (g.t < w)
+        for (int k = g.t; k < n; k += w) fn(k);
+    __syncwarp(g.mask);
+#else
+    (void)g;
+    for (int j = 0; j < w; j++)
+        for (int k = level_order_reversed ? w - 1 - j : j; k < n; k += w) fn(k);
+#endif
+}
+
+// the lane's slot of an operand, from its base and offset
+__device__ __forceinline__ int slot(int x, int in0, int in1, int out, int tmp) {
+    int sel = x >> 13, base = 0;
+    base = sel == 1 ? in0 : base;
+    base = sel == 2 ? in1 : base;
+    base = sel == 3 ? out : base;
+    base = sel == 4 ? tmp : base;
+    return base + (x & 0x1fff);
+}
+
+// one operation of a level: operands from shared memory into registers,
+// the result back
+__device__ __forceinline__ void run_op(const Op& op, Fp* ws, int in0, int in1, int out, int tmp) {
+    if (op.kind == OP_NOP) return;
+    Fp x = ws[slot(op.a, in0, in1, out, tmp)], y = ws[slot(op.b, in0, in1, out, tmp)], r;
+    if (op.kind == OP_MUL) fp_mul(r, x, y);
+    else fp_lin(r, x, y, op.k);
+    ws[slot(op.dst, in0, in1, out, tmp)] = r;
+}
+
+// The tapes as a group kernel reads them: its operations and level starts
+// (staged in shared memory on the card, levels from lv0 on, offsets from
+// its first operation) and every tape's info
+struct TapeView {
+    const Op* ops;
+    const uint16_t* level_start;
+    int lv0;
+    const TapeInfo* info;
+};
+
+// run tape ``id`` on the lane's workspace ws with the given bases (Fp slots)
+__device__ __forceinline__ void run_tape(const Grp& g, const TapeView& T, int id, Fp* ws, int in0,
+                                         int in1, int out, int tmp) {
+    const TapeInfo info = T.info[id];
+    const int end = info.first_level + info.n_levels - T.lv0;
+    for (int l = info.first_level - T.lv0; l < end; l++) {
+        const int start = T.level_start[l];
+        par(g, info.width, T.level_start[l + 1] - start,
+            [&](int k) { run_op(T.ops[start + k], ws, in0, in1, out, tmp); });
+    }
+}
+
+// ---- group lane routines -----------------------------------------------------
+
+// r*P (G1) and, on the joint track (G2), r*Q for lane i over shared MSB-first
+// 4-bit digits [n_digits, n] (ec.gj_scalar_mul_windowed, ec.g1_scalar_mul_windowed):
+// P is row ``row`` of (x1, y1), Q row i of (x2, y2).  A zero scalar gives
+// exact zeros and no work (its rows are never read); the accumulator is not
+// doubled while it is infinity.  The window table [0..15]*B
+// (ec._window_tables): even e doubles entry e/2, odd e adds B to entry
+// e - 1, a track whose entry e - 1 is infinity copying B.
+template <int W, bool G2>
+__device__ __forceinline__ void lane_scalar_mul(const Grp& g, const TapeView& T, Fp* ws, long i,
+                                                long n, int n_digits, const u32* x1,
+                                                const u32* y1, long row, const u32* x2,
+                                                const u32* y2, const int32_t* digits, u32* X1,
+                                                u32* Y1, u32* Z1, u32* X2, u32* Y2, u32* Z2) {
+    const int E = SM_ENTRY(G2), ACC = SM_ACC(G2), TMP = SM_TMP(G2);
+    const int DBL = G2 ? TAPE_G1G2_DBL : TAPE_G1_DBL, ADD = G2 ? TAPE_G1G2_ADD : TAPE_G1_ADD;
+    int any = 0;
+    for (int d = 0; d < n_digits; d++) any |= digits[(long)d * n + i] & 15;
+    if (any) {
+        // entries 0 and 1: zero, and B with Z = one
+        u32* w = ws[0].w;
+        par(g, W, 2 * E * 12, [&](int k) {
+            int s = k / 12, e = s / E, c = s % E, q = k % 12;
+            u32 v = 0;
+            if (e == 1) {
+                if (c == 0) v = x1[row * 12 + q];
+                else if (c == 1) v = y1[row * 12 + q];
+                else if (c == 2 || c == 7) v = ONE_W[q];
+                else if (c == 3 || c == 4) v = x2[i * 24 + (c - 3) * 12 + q];
+                else if (c == 5 || c == 6) v = y2[i * 24 + (c - 5) * 12 + q];
+            }
+            w[k] = v;
+        });
+        for (int e = 2; e < 16; e++) {
+            if (e % 2 == 0) {
+                run_tape(g, T, DBL, ws, (e / 2) * E, 0, e * E, TMP);
+                continue;
+            }
+            const int p = (e - 1) * E;
+            bool inf1 = fp_is_zero(ws[p + 2]);
+            bool inf2 = G2 && fp_is_zero(ws[p + 7]) && fp_is_zero(ws[p + 8]);
+            if (!inf1 && !inf2) {
+                run_tape(g, T, ADD, ws, p, E, e * E, TMP);
+                continue;
+            }
+            // a track at infinity copies B (words of its slots), the other adds
+            u32 *dst = ws[e * E].w, *src = ws[E].w;
+            if (inf1) par(g, W, 36, [&](int k) { dst[k] = src[k]; });
+            else run_tape(g, T, TAPE_G1_ADD, ws, p, E, e * E, TMP);
+            if (G2) {
+                if (inf2) par(g, W, 72, [&](int k) { dst[36 + k] = src[36 + k]; });
+                else run_tape(g, T, TAPE_G2_ADD, ws, p + 3, E + 3, e * E + 3, TMP);
+            }
+        }
+        bool inf = true;
+        for (int d = 0; d < n_digits; d++) {
+            const int digit = digits[(long)d * n + i] & 15;
+            if (!inf)
+                for (int k = 0; k < 4; k++) run_tape(g, T, DBL, ws, ACC, 0, ACC, TMP);
+            if (inf) {      // infinity + entry: the entry (zeros for digit 0)
+                u32 *dst = ws[ACC].w, *src = ws[digit * E].w;
+                par(g, W, E * 12, [&](int k) { dst[k] = src[k]; });
+            } else if (digit) {
+                run_tape(g, T, ADD, ws, ACC, digit * E, ACC, TMP);
+            }
+            inf = inf && digit == 0;
+        }
+    }
+    par(g, W, E * 12, [&](int k) {
+        int s = k / 12, q = k % 12;
+        u32 v = any ? ws[ACC + s].w[q] : 0u;
+        if (s < 3) (s == 0 ? X1 : s == 1 ? Y1 : Z1)[i * 12 + q] = v;
+        else (s < 5 ? X2 : s < 7 ? Y2 : Z2)[i * 24 + ((s - 3) % 2) * 12 + q] = v;
+    });
+}
+
+// Miller lanes [0, n): P Jacobian (xp, yp, zp), Q Jacobian (xq, yq, zq);
+// lanes with mask 0 give one, and lane sum_lane takes its mask from zq != 0
+// (the Sigma r*sig lane of bls_backend._pipeline_fused).  Lanes [n, n_out)
+// are the product tree's padding: one.  The loop runs the doubling step on
+// bits 62..0 of |x| and the add step on its set bits, then conjugates.
+template <int W>
+__device__ __forceinline__ void lane_miller(const Grp& g, const TapeView& T, Fp* ws, long i, long n,
+                                            long sum_lane, const u32* xp, const u32* yp,
+                                            const u32* zp, const u32* xq, const u32* yq,
+                                            const u32* zq, const uint8_t* mask, u32* out) {
+    bool m = false;
+    if (i < n) {
+        if (i == sum_lane) {
+            u32 acc = 0;
+            for (int k = 0; k < 24; k++) acc |= zq[i * 24 + k];
+            m = acc != 0;
+        } else {
+            m = mask[i] != 0;
+        }
+    }
+    if (m) {
+        // f = one, T = Q, and the lane's inputs: xp yp zp | xq yq zq
+        u32* w = ws[0].w;
+        par(g, W, (MS_XZ - MS_F) * 12, [&](int k) {
+            int s = k / 12, q = k % 12;
+            u32 v;
+            if (s < MS_T) v = s == 0 ? ONE_W[q] : 0u;
+            else if (s < MS_XP)
+                v = (s < MS_T + 2 ? xq : s < MS_T + 4 ? yq : zq)[i * 24 + (s - MS_T) % 2 * 12 + q];
+            else if (s == MS_XP) v = xp[i * 12 + q];
+            else if (s == MS_YP) v = yp[i * 12 + q];
+            else if (s == MS_ZP) v = zp[i * 12 + q];
+            else v = (s < MS_YQ ? xq : s < MS_ZQ ? yq : zq)[i * 24 + (s - MS_XQ) % 2 * 12 + q];
+            w[k] = v;
+        });
+        run_tape(g, T, TAPE_MILLER_SETUP, ws, 0, 0, 0, MS_TMP);
+        for (int b = 62; b >= 0; b--) {
+            run_tape(g, T, TAPE_MILLER_DBL, ws, 0, 0, 0, MS_TMP);
+            if ((BLS_X_ABS >> b) & 1) run_tape(g, T, TAPE_MILLER_ADD, ws, 0, 0, 0, MS_TMP);
+        }
+    }
+    // out = conj(f): the w coefficients negated; one where the lane is off
+    par(g, W, 12, [&](int s) {
+        Fp v;
+        if (m) {
+            v = ws[MS_F + s];
+            if (s >= 6) fp_neg(v, v);
+        } else if (s == 0) {
+            fp_one(v);
+        } else {
+            fp_zero(v);
+        }
+        st(out, i * 12 + s, v);
+    });
+}
+
+// one Fq12 product of rows i of a and b into row i of out; a factor equal
+// to one (a masked or padding Miller lane) returns the other with no product
+template <int W>
+__device__ __forceinline__ void lane_fq12_mul(const Grp& g, const TapeView& T, Fp* ws, long i,
+                                              const u32* a, const u32* b, u32* out) {
+    u32* w = ws[0].w;
+    par(g, W, 288, [&](int k) { w[k] = k < 144 ? a[i * 144 + k] : b[i * 144 + k - 144]; });
+    u32 xa = 0, ya = 0;
+    for (int k = 0; k < 144; k++) {
+        u32 one = k < 12 ? ONE_W[k] : 0u;
+        xa |= w[k] ^ one;
+        ya |= w[144 + k] ^ one;
+    }
+    int res = 0;
+    if (xa == 0) res = 12;
+    else if (ya != 0) run_tape(g, T, TAPE_FQ12_MUL, ws, 0, 12, 0, FQ_TMP);
+    par(g, W, 144, [&](int k) { out[i * 144 + k] = w[res * 12 + k]; });
+}
+
+// ---- one-thread lane routines (one thread a lane in csrc/bls12_381.cu) -------
 
 // One double-and-add step of the psi check (ec._dbl_add_step): 2T, then the
 // mixed add of the affine base (xb, yb) when bit is set; inf is T's flag.
@@ -525,159 +1401,6 @@ __device__ __noinline__ void dbl_add_step(Jac<F>& T, bool& inf, const F& xb, con
     T.Z = Z3a;
 }
 
-// ---- global memory rows -----------------------------------------------------
-
-__device__ __forceinline__ void ld(Fp& r, const u32* p, long i) {
-    for (int k = 0; k < 12; k++) r.w[k] = p[i * 12 + k];
-}
-__device__ __forceinline__ void st(u32* p, long i, const Fp& a) {
-    for (int k = 0; k < 12; k++) p[i * 12 + k] = a.w[k];
-}
-__device__ __forceinline__ void ld(Fp2& r, const u32* p, long i) {
-    ld(r.c[0], p, 2 * i);
-    ld(r.c[1], p, 2 * i + 1);
-}
-__device__ __forceinline__ void st(u32* p, long i, const Fp2& a) {
-    st(p, 2 * i, a.c[0]);
-    st(p, 2 * i + 1, a.c[1]);
-}
-// Fp12 rows [N, 12, 12]: coefficient (c6*3 + c2)*2 + ab
-__device__ __forceinline__ void ld(Fp12& r, const u32* p, long i) {
-    for (int a = 0; a < 2; a++)
-        for (int b = 0; b < 3; b++) ld(r.c[a].c[b], p, i * 6 + a * 3 + b);
-}
-__device__ __forceinline__ void st(u32* p, long i, const Fp12& f) {
-    for (int a = 0; a < 2; a++)
-        for (int b = 0; b < 3; b++) st(p, i * 6 + a * 3 + b, f.c[a].c[b]);
-}
-template <class F> __device__ __forceinline__ void ld(Jac<F>& r, const u32* X, const u32* Y,
-                                                      const u32* Z, long i) {
-    ld(r.X, X, i);
-    ld(r.Y, Y, i);
-    ld(r.Z, Z, i);
-}
-template <class F> __device__ __forceinline__ void st(u32* X, u32* Y, u32* Z, long i,
-                                                      const Jac<F>& p) {
-    st(X, i, p.X);
-    st(Y, i, p.Y);
-    st(Z, i, p.Z);
-}
-
-// ---- per-lane routines (one thread each in csrc/bls12_381.cu) ---------------
-
-// window table [0..15]*B (ec._window_tables): even e doubles entry e/2, odd e
-// adds B to entry e - 1
-template <class F> __device__ __forceinline__ void window_table(Jac<F>* tab, const F& x,
-                                                                const F& y) {
-    jac_zero(tab[0]);
-    tab[1].X = x;
-    tab[1].Y = y;
-    f_one(tab[1].Z);
-#pragma unroll 1
-    for (int e = 2; e < 16; e++) {
-        if (e % 2 == 0) jac_double(tab[e], tab[e / 2]);
-        else jac_add_full(tab[e], tab[e - 1], tab[1], -1, -1);
-    }
-}
-
-// r*P (G1) and r*Q (G2) for lane i over shared MSB-first 4-bit digits
-// [n_digits, n] (ec.gj_scalar_mul_windowed); zero scalars give exact zeros
-// and no work, and the accumulator is not doubled while it is infinity
-__device__ __forceinline__ void lane_gj_scalar_mul(long i, long n, int n_digits, const u32* pkx,
-                                                   const u32* pky, const u32* sx, const u32* sy,
-                                                   const int32_t* digits, u32* PX, u32* PY,
-                                                   u32* PZ, u32* SX, u32* SY, u32* SZ) {
-    Jac<Fp> a1;
-    Jac<Fp2> a2;
-    jac_zero(a1);
-    jac_zero(a2);
-    int any = 0;
-    for (int d = 0; d < n_digits; d++) any |= digits[(long)d * n + i] & 15;
-    if (!any) {
-        st(PX, PY, PZ, i, a1);
-        st(SX, SY, SZ, i, a2);
-        return;
-    }
-    Jac<Fp> tab1[16];
-    Jac<Fp2> tab2[16];
-    Fp x1, y1;
-    Fp2 x2, y2;
-    ld(x1, pkx, i);
-    ld(y1, pky, i);
-    ld(x2, sx, i);
-    ld(y2, sy, i);
-    window_table(tab1, x1, y1);
-    window_table(tab2, x2, y2);
-    bool inf = true;
-#pragma unroll 1
-    for (int d = 0; d < n_digits; d++) {
-        int digit = digits[(long)d * n + i] & 15;
-#pragma unroll 1
-        for (int k = 0; k < 4 && !inf; k++) {
-            jac_double(a1, a1);
-            jac_double(a2, a2);
-        }
-        bool pick_inf = digit == 0;
-        jac_add_full(a1, a1, tab1[digit], inf, pick_inf);
-        jac_add_full(a2, a2, tab2[digit], inf, pick_inf);
-        inf = inf && pick_inf;
-    }
-    st(PX, PY, PZ, i, a1);
-    st(SX, SY, SZ, i, a2);
-}
-
-// r*P for G1 lane i, P the affine row ``row`` of (xs, ys), over MSB-first
-// 4-bit digits [n_digits, n] (the G1 half of lane_gj_scalar_mul;
-// ec.g1_scalar_mul_windowed): a zero scalar gives exact zeros and no work
-// (its row is never read), and the accumulator is not doubled while it is
-// infinity
-__device__ __forceinline__ void g1_scalar_mul_row(long i, long n, int n_digits, const u32* xs,
-                                                  const u32* ys, long row,
-                                                  const int32_t* digits, u32* X, u32* Y,
-                                                  u32* Z) {
-    Jac<Fp> a1;
-    jac_zero(a1);
-    int any = 0;
-    for (int d = 0; d < n_digits; d++) any |= digits[(long)d * n + i] & 15;
-    if (!any) {
-        st(X, Y, Z, i, a1);
-        return;
-    }
-    Jac<Fp> tab1[16];
-    Fp x1, y1;
-    ld(x1, xs, row);
-    ld(y1, ys, row);
-    window_table(tab1, x1, y1);
-    bool inf = true;
-#pragma unroll 1
-    for (int d = 0; d < n_digits; d++) {
-        int digit = digits[(long)d * n + i] & 15;
-#pragma unroll 1
-        for (int k = 0; k < 4 && !inf; k++) jac_double(a1, a1);
-        bool pick_inf = digit == 0;
-        jac_add_full(a1, a1, tab1[digit], inf, pick_inf);
-        inf = inf && pick_inf;
-    }
-    st(X, Y, Z, i, a1);
-}
-
-// r*P for G1 lane i over its own affine row of (xs, ys)
-__device__ __forceinline__ void lane_g1_scalar_mul(long i, long n, int n_digits, const u32* xs,
-                                                   const u32* ys, const int32_t* digits, u32* X,
-                                                   u32* Y, u32* Z) {
-    g1_scalar_mul_row(i, n, n_digits, xs, ys, i, digits, X, Y, Z);
-}
-
-// r*P for G1 lane i, P read straight from row idx[i] of the resident table
-// (tx, ty) with no gathered copy (msm._gather_fold's gather + windowed scan)
-__device__ __forceinline__ void lane_g1_gather_scalar_mul(long i, long n, int n_digits,
-                                                          const u32* tx, const u32* ty,
-                                                          const int32_t* idx,
-                                                          const int32_t* digits, u32* X, u32* Y,
-                                                          u32* Z) {
-    g1_scalar_mul_row(i, n, n_digits, tx, ty, (long)idx[i], digits, X, Y, Z);
-}
-
 // rows i and i + half of a G1 (or G2) lane array -> row i (one tree level)
 template <class F> __device__ __forceinline__ void lane_add_halves(long i, long half, u32* X,
                                                                    u32* Y, u32* Z) {
@@ -686,151 +1409,6 @@ template <class F> __device__ __forceinline__ void lane_add_halves(long i, long 
     ld(q, X, Y, Z, i + half);
     jac_add_full(p, p, q, -1, -1);
     st(X, Y, Z, i, p);
-}
-
-// Miller loop of lane i (ops/bls12_381.py batch_miller_loop with zp and zq)
-__device__ __noinline__ void miller(Fp12& f, const Fp& xp, const Fp& yp, const Fp& zp,
-                                    const Fp2& xq, const Fp2& yq, const Fp2& zq) {
-    Fp zp2, xz, zp3;
-    Fp2 zxq, zyq, zq2, zq3, xzq2, ypq3;
-    fp_mul(zp2, zp, zp);
-    fp_mul(xz, xp, zp);
-    fp_mul(zp3, zp2, zp);
-    fp2_mul_fp(zxq, xq, zp3);
-    fp2_mul_fp(zyq, yq, zp3);
-    fp2_mul(zq2, zq, zq);
-    fp2_mul(zq3, zq2, zq);
-    fp2_mul_fp(xzq2, zq2, xz);
-    fp2_mul_fp(ypq3, zq3, yp);
-    Fp2 X = xq, Y = yq, Z = zq;
-    fp12_one(f);
-#pragma unroll 1
-    for (int b = 62; b >= 0; b--) {
-        int bit = (int)((BLS_X_ABS >> b) & 1);
-        Fp2 xx, yy, zz, yz, Z3, E, xxx, xxzz, yzzz, c4, xb, t, ff, zz2, z3zq, D, X3, a0, s_a1,
-            s_b1, ey, a1, b1, a0s, zzz, xqzz2, u1, Y3, H, yqzzz, dl, s1, z3ah, Nl, nxq, dyq,
-            c1a, d1a, hh, c0a, I4, rvec, j, v, rr, X3a, rv, yj, Y3a, Z3a, tmp;
-        Fp12 fsq, fdbl;
-        fp2_mul(xx, X, X);
-        fp2_mul(yy, Y, Y);
-        fp2_mul(zz, Z, Z);
-        fp2_mul(yz, Y, Z);
-        fp12_sqr(fsq, f);
-        fp2_scale(Z3, yz, 2);
-        fp2_scale(E, xx, 3);
-        fp2_add(xb, X, yy);
-        fp2_mul(xxx, xx, X);
-        fp2_mul(xxzz, xx, zz);
-        fp2_mul(yzzz, yz, zz);
-        fp2_mul(c4, yy, yy);
-        fp2_mul(t, xb, xb);
-        fp2_mul(ff, E, E);
-        fp2_sub(D, t, xx);
-        fp2_sub(D, D, c4);
-        fp2_scale(D, D, 2);
-        fp2_scale(tmp, D, 2);
-        fp2_sub(X3, ff, tmp);
-        fp2_scale(a0, xxx, 3);
-        fp2_scale(tmp, yy, 2);
-        fp2_sub(a0, a0, tmp);
-        fp2_scale(s_a1, xxzz, 3);
-        fp2_scale(s_b1, yzzz, 2);
-        fp2_sub(tmp, D, X3);
-        fp2_mul(ey, E, tmp);
-        fp2_mul_fp(a1, s_a1, xz);
-        fp2_neg(a1, a1);
-        fp2_mul_fp(b1, s_b1, yp);
-        fp2_mul_fp(a0s, a0, zp3);
-        fp2_scale(tmp, c4, 8);
-        fp2_sub(Y3, ey, tmp);
-        fp12_mul_line(fdbl, fsq, a0s, a1, b1);
-        if (!bit) {
-            f = fdbl;
-            X = X3;
-            Y = Y3;
-            Z = Z3;
-            continue;
-        }
-        // add step: the chord through 2T and Q (computed only on set bits)
-        fp2_mul(zz2, Z3, Z3);
-        fp2_mul(z3zq, Z3, zq);
-        fp2_mul(zzz, Z3, zz2);
-        fp2_mul(xqzz2, xq, zz2);
-        fp2_mul(u1, X3, zq2);
-        fp2_sub(H, xqzz2, u1);
-        fp2_mul(yqzzz, yq, zzz);
-        fp2_neg(tmp, H);
-        fp2_mul(dl, tmp, Z3);
-        fp2_mul(s1, Y3, zq3);
-        fp2_mul(z3ah, z3zq, H);
-        fp2_sub(Nl, s1, yqzzz);
-        fp2_mul(nxq, Nl, zxq);
-        fp2_mul(dyq, dl, zyq);
-        fp2_mul(c1a, Nl, xzq2);
-        fp2_neg(c1a, c1a);
-        fp2_mul(d1a, dl, ypq3);
-        fp2_mul(hh, H, H);
-        fp2_sub(c0a, nxq, dyq);
-        fp2_scale(I4, hh, 4);
-        fp2_sub(rvec, yqzzz, s1);
-        fp2_scale(rvec, rvec, 2);
-        fp12_mul_line(f, fdbl, c0a, c1a, d1a);
-        fp2_mul(j, H, I4);
-        fp2_mul(v, u1, I4);
-        fp2_mul(rr, rvec, rvec);
-        fp2_sub(X3a, rr, j);
-        fp2_scale(tmp, v, 2);
-        fp2_sub(X3a, X3a, tmp);
-        fp2_sub(tmp, v, X3a);
-        fp2_mul(rv, rvec, tmp);
-        fp2_mul(yj, s1, j);
-        fp2_scale(tmp, yj, 2);
-        fp2_sub(Y3a, rv, tmp);
-        fp2_scale(Z3a, z3ah, 2);
-        X = X3a;
-        Y = Y3a;
-        Z = Z3a;
-    }
-    fp12_conj(f, f);
-}
-
-// Miller lanes [0, n): P Jacobian (xp, yp, zp), Q Jacobian (xq, yq, zq);
-// lanes with mask 0 give one, and lane sum_lane takes its mask from zq != 0
-// (the Σ r·sig lane of bls_backend._pipeline_fused).  Lanes [n, n_out) are
-// the product tree's padding: one.
-__device__ __forceinline__ void lane_miller(long i, long n, long sum_lane, const u32* xp,
-                                            const u32* yp, const u32* zp, const u32* xq,
-                                            const u32* yq, const u32* zq, const uint8_t* mask,
-                                            u32* out) {
-    Fp12 f;
-    fp12_one(f);
-    if (i < n) {
-        Fp2 zqi;
-        ld(zqi, zq, i);
-        bool m = i == sum_lane ? !fp2_is_zero(zqi) : mask[i] != 0;
-        if (m) {
-            Fp a, b, c;
-            Fp2 x, y;
-            ld(a, xp, i);
-            ld(b, yp, i);
-            ld(c, zp, i);
-            ld(x, xq, i);
-            ld(y, yq, i);
-            miller(f, a, b, c, x, y, zqi);
-        }
-    }
-    st(out, i, f);
-}
-
-// one Fq12 product; a factor equal to one (a masked or padding Miller
-// lane) returns the other with no product
-__device__ __forceinline__ void lane_fq12_mul(long i, const u32* a, const u32* b, u32* out) {
-    Fp12 x, y;
-    ld(x, a, i);
-    ld(y, b, i);
-    if (fp12_is_one(x)) x = y;
-    else if (!fp12_is_one(y)) fp12_mul(x, x, y);
-    st(out, i, x);
 }
 
 // psi membership of affine G2 lane i (ec.g2_subgroup_verdict_batch)
@@ -1099,5 +1677,640 @@ __device__ __forceinline__ void lane_final_exp_hard(long i, const u32* in, u32* 
     fp12_mul(g0, g0, a);
     st(out, i, g0);
 }
+
+// ---- recording and scheduling the tapes (host only) ---------------------------
+//
+// csrc/bls_tapes.cc builds the tapes with this code and hands them to the
+// card; the CPU tests run the group lanes on the same tapes.
+
+#ifndef __CUDACC__
+
+// ---- traced values ------------------------------------------------------------
+//
+// A TV is a value of a step being recorded (on the host, by host_tapes()):
+// fp_mul and the linear operations on TVs append an operation to the
+// builder (tb_emit, below) instead of computing.
+
+struct Builder;
+inline int tb_emit(Builder* b, int kind, int x, int y);
+
+struct TV {
+    int v;
+    Builder* b;
+};
+
+inline void fp_mul(TV& r, const TV& a, const TV& c) {
+    r.v = tb_emit(a.b, OP_MUL, a.v, c.v);
+    r.b = a.b;
+}
+inline void fp_add(TV& r, const TV& a, const TV& c) {
+    r.v = tb_emit(a.b, OP_ADD, a.v, c.v);
+    r.b = a.b;
+}
+inline void fp_sub(TV& r, const TV& a, const TV& c) {
+    r.v = tb_emit(a.b, OP_SUB, a.v, c.v);
+    r.b = a.b;
+}
+inline void fp_neg(TV& r, const TV& a) {
+    r.v = tb_emit(a.b, OP_NEG, a.v, -1);
+    r.b = a.b;
+}
+// k*a as fp_scale computes it: double-and-add over k's bits
+inline void fp_scale(TV& r, const TV& a, int k) {
+    TV acc = a;
+    int top = 0;
+    while ((k >> (top + 1)) != 0) top++;
+    for (int i = top - 1; i >= 0; i--) {
+        fp_add(acc, acc, acc);
+        if ((k >> i) & 1) fp_add(acc, acc, a);
+    }
+    r = acc;
+}
+
+#define LH_TB_VALS 2048
+#define LH_TB_OUTS 32
+#define LH_TB_PLEVELS 64
+#define LH_TB_SLOTS 256
+// a product's weight against a linear operation's in a thread's load
+#define LH_TB_MUL_COST 8
+
+// The tape builder: a step traced on TVs (kind, operands a and c, the
+// input slots), then scheduled.  Per value: pa its product depth as soon as
+// possible, need the products after it on its longest path, plev a
+// product's level, mp the latest product level it depends on, dl a linear
+// operation's deadline, lev / thr / seq its level, thread and place, last
+// the last level that reads it, placed whether its slot is fixed.
+struct Builder {
+    int n, n_out, error;
+    uint8_t kind[LH_TB_VALS], placed[LH_TB_VALS];
+    int16_t a[LH_TB_VALS], c[LH_TB_VALS];
+    uint16_t loc[LH_TB_VALS];
+    int16_t pa[LH_TB_VALS], need[LH_TB_VALS], mp[LH_TB_VALS], plev[LH_TB_VALS],
+        lev[LH_TB_VALS], last[LH_TB_VALS];
+    int16_t out_v[LH_TB_OUTS];
+    uint16_t out_loc[LH_TB_OUTS];
+    int16_t dl[LH_TB_VALS], seq[LH_TB_VALS], cnt[LH_TB_PLEVELS], slot_last[LH_TB_SLOTS];
+    int8_t thr[LH_TB_VALS];
+};
+
+inline int tb_emit(Builder* b, int kind, int x, int y) {
+    if (b->n >= LH_TB_VALS) {
+        b->error = 1;
+        return 0;
+    }
+    int v = b->n++;
+    b->kind[v] = (uint8_t)kind;
+    b->a[v] = (int16_t)x;
+    b->c[v] = (int16_t)y;
+    b->loc[v] = 0;
+    return v;
+}
+
+inline void tb_begin(Builder& b) {
+    b.n = 0;
+    b.n_out = 0;
+}
+
+// bind a traced value (or a tower element / Jacobian point of them) to
+// consecutive input slots from loc on
+inline void tb_in(Builder& b, TV& x, int loc) {
+    x.v = tb_emit(&b, OP_INPUT, -1, -1);
+    x.b = &b;
+    b.loc[x.v] = (uint16_t)loc;
+}
+template <class X> inline void tb_in(Builder& b, Fp2T<X>& x, int loc) {
+    tb_in(b, x.c[0], loc);
+    tb_in(b, x.c[1], loc + 1);
+}
+template <class X> inline void tb_in(Builder& b, Fp6T<X>& x, int loc) {
+    for (int i = 0; i < 3; i++) tb_in(b, x.c[i], loc + 2 * i);
+}
+template <class X> inline void tb_in(Builder& b, Fp12T<X>& x, int loc) {
+    for (int i = 0; i < 2; i++) tb_in(b, x.c[i], loc + 6 * i);
+}
+template <class F> inline void tb_in(Builder& b, Jac<F>& p, int loc) {
+    const int s = (int)(sizeof(F) / sizeof(TV));
+    tb_in(b, p.X, loc);
+    tb_in(b, p.Y, loc + s);
+    tb_in(b, p.Z, loc + 2 * s);
+}
+
+// mark a traced value (...) as the step's output at consecutive slots
+inline void tb_out(Builder& b, const TV& x, int loc) {
+    if (b.n_out >= LH_TB_OUTS) {
+        b.error = 1;
+        return;
+    }
+    b.out_v[b.n_out] = (int16_t)x.v;
+    b.out_loc[b.n_out++] = (uint16_t)loc;
+}
+template <class X> inline void tb_out(Builder& b, const Fp2T<X>& x, int loc) {
+    tb_out(b, x.c[0], loc);
+    tb_out(b, x.c[1], loc + 1);
+}
+template <class X> inline void tb_out(Builder& b, const Fp6T<X>& x, int loc) {
+    for (int i = 0; i < 3; i++) tb_out(b, x.c[i], loc + 2 * i);
+}
+template <class X> inline void tb_out(Builder& b, const Fp12T<X>& x, int loc) {
+    for (int i = 0; i < 2; i++) tb_out(b, x.c[i], loc + 6 * i);
+}
+template <class F> inline void tb_out(Builder& b, const Jac<F>& p, int loc) {
+    const int s = (int)(sizeof(F) / sizeof(TV));
+    tb_out(b, p.X, loc);
+    tb_out(b, p.Y, loc + s);
+    tb_out(b, p.Z, loc + 2 * s);
+}
+
+// May a write to slot x land while slot y is still read?  Slots alias when
+// their offsets match on the same base, or when one is the output base and
+// the other an input base (a step may run in place).  Absolute slots and
+// temporaries never alias a relocated one.
+inline bool tb_alias(int x, int y) {
+    if ((x & 0x1fff) != (y & 0x1fff)) return false;
+    int bx = x & ~0x1fff, by = y & ~0x1fff;
+    if (bx == by) return true;
+    bool rx = bx == LOC_IN0 || bx == LOC_IN1, ry = by == LOC_IN0 || by == LOC_IN1;
+    return (bx == LOC_OUT && ry) || (by == LOC_OUT && rx);
+}
+
+inline bool tb_linear(const Builder& b, int v) {
+    return b.kind[v] != OP_INPUT && b.kind[v] != OP_MUL;
+}
+
+// are the operands of v produced before ``level``?
+inline bool tb_ready(const Builder& b, int v, int level) {
+    for (int o = 0; o < 2; o++) {
+        int x = o ? b.c[v] : b.a[v];
+        if (x >= 0 && (b.lev[x] == -2 || b.lev[x] >= level)) return false;
+    }
+    return true;
+}
+
+// Schedule the traced step into tape ``id`` of T, for groups of W threads:
+// products into product levels by depth (one with slack where the level's
+// last round of W has room), then levels and threads for every operation
+// (below), outputs written straight to their slots where no later read
+// forbids it (else by a last level of moves), temporaries in the lowest
+// slot free since the level after their last read.  A level's operations
+// are laid out as rows of W (thread t runs positions t, t + W, ... in
+// order), no-ops as filler.
+inline void tb_finish(Builder& b, Tapes& T, int id, int W, int max_temps) {
+    const int n = b.n;
+    if (b.error) {
+        T.error = 1;
+        return;
+    }
+    // product depth, as soon as possible, and products still needed after
+    int D = 0;
+    for (int v = 0; v < n; v++) {
+        int p = 0;
+        if (b.kind[v] != OP_INPUT) {
+            p = b.pa[b.a[v]];
+            if (b.c[v] >= 0 && b.pa[b.c[v]] > p) p = b.pa[b.c[v]];
+            if (b.kind[v] == OP_MUL) p++;
+        }
+        b.pa[v] = (int16_t)p;
+        if (b.kind[v] == OP_MUL && p > D) D = p;
+        b.need[v] = 0;
+    }
+    if (D + 2 >= LH_TB_PLEVELS) {
+        T.error = 1;
+        return;
+    }
+    for (int v = n - 1; v >= 0; v--) {
+        if (b.kind[v] == OP_INPUT) continue;
+        int nd = b.need[v] + (b.kind[v] == OP_MUL ? 1 : 0);
+        if (b.need[b.a[v]] < nd) b.need[b.a[v]] = (int16_t)nd;
+        if (b.c[v] >= 0 && b.need[b.c[v]] < nd) b.need[b.c[v]] = (int16_t)nd;
+    }
+    // product levels: those without slack first, then the others in trace
+    // order, where a round has room
+    for (int l = 0; l <= D; l++) b.cnt[l] = 0;
+    for (int v = 0; v < n; v++)
+        if (b.kind[v] == OP_MUL && b.pa[v] == D - b.need[v]) {
+            b.plev[v] = b.pa[v];
+            b.cnt[b.pa[v]]++;
+        }
+    for (int v = 0; v < n; v++) {
+        int m = 0;
+        if (b.kind[v] != OP_INPUT) {
+            m = b.mp[b.a[v]];
+            if (b.c[v] >= 0 && b.mp[b.c[v]] > m) m = b.mp[b.c[v]];
+        }
+        if (b.kind[v] == OP_MUL) {
+            int lo = m + 1, hi = D - b.need[v];
+            if (lo > hi) {
+                T.error = 1;
+                return;
+            }
+            if (b.pa[v] != hi) {
+                int best = -1;
+                for (int l = lo; l <= hi && best < 0; l++)
+                    if (b.cnt[l] % W != 0) best = l;
+                if (best < 0) {
+                    best = lo;
+                    for (int l = lo; l <= hi; l++)
+                        if (b.cnt[l] < b.cnt[best]) best = l;
+                }
+                b.plev[v] = (int16_t)best;
+                b.cnt[best]++;
+            }
+            m = b.plev[v];
+        }
+        b.mp[v] = (int16_t)m;
+    }
+    // deadline of each linear operation: the product level of the first
+    // product that needs it (through linear operations), past D if none
+    for (int v = 0; v < n; v++) b.dl[v] = (int16_t)(D + 1);
+    for (int v = n - 1; v >= 0; v--) {
+        if (b.kind[v] == OP_INPUT) continue;
+        const int d = b.kind[v] == OP_MUL ? b.plev[v] : b.dl[v];
+        for (int o = 0; o < 2; o++) {
+            int x = o ? b.c[v] : b.a[v];
+            if (x >= 0 && tb_linear(b, x) && b.dl[x] > d) b.dl[x] = (int16_t)d;
+        }
+    }
+    // levels, and the thread of each operation in its level: the products of
+    // product level pl once all are ready, round robin; then the linear
+    // operations the next product level needs; then others where they do not
+    // lengthen the level.  A linear operation whose operands in the level
+    // are all on one thread follows them there; else it starts on the least
+    // loaded thread.
+    int left = 0, seq = 0;
+    for (int v = 0; v < n; v++) {
+        b.lev[v] = (int16_t)(b.kind[v] == OP_INPUT ? -1 : -2);
+        b.placed[v] = b.kind[v] == OP_INPUT;
+        left += b.kind[v] != OP_INPUT;
+    }
+    int L = -1;
+    for (int level = 0, pl = 1; left > 0; level++) {
+        int load[32] = {0}, cap = 0, placed = 0;
+        bool go = pl <= D;
+        for (int v = 0; v < n && go; v++)
+            if (b.kind[v] == OP_MUL && b.plev[v] == pl && !tb_ready(b, v, level)) go = false;
+        for (int v = 0, i = 0; v < n && go; v++)
+            if (b.kind[v] == OP_MUL && b.plev[v] == pl) {
+                const int t = i++ % W;
+                b.lev[v] = (int16_t)level;
+                b.thr[v] = (int8_t)t;
+                b.seq[v] = (int16_t)seq++;
+                load[t] += LH_TB_MUL_COST;
+                if (load[t] > cap) cap = load[t];
+                placed++;
+            }
+        for (int pass = 0; pass < 2; pass++)
+            for (int v = 0; v < n; v++) {
+                if (b.lev[v] != -2 || !tb_linear(b, v)) continue;
+                if ((b.dl[v] <= pl) != (pass == 0)) continue;
+                int t = -1;
+                bool ok = true;
+                for (int o = 0; o < 2 && ok; o++) {
+                    int x = o ? b.c[v] : b.a[v];
+                    if (x < 0 || (b.lev[x] != -2 && b.lev[x] < level)) continue;
+                    if (b.lev[x] != level || (t >= 0 && b.thr[x] != t)) ok = false;
+                    else t = b.thr[x];
+                }
+                if (!ok) continue;
+                if (t < 0)
+                    for (int q = t = 0; q < W; q++)
+                        if (load[q] < load[t]) t = q;
+                if (pass == 1 && load[t] + 1 > cap) continue;
+                b.lev[v] = (int16_t)level;
+                b.thr[v] = (int8_t)t;
+                b.seq[v] = (int16_t)seq++;
+                if (++load[t] > cap) cap = load[t];
+                placed++;
+            }
+        if (go) pl++;
+        if (!placed) {
+            T.error = 1;
+            return;
+        }
+        left -= placed;
+        L = level;
+    }
+    for (int v = 0; v < n; v++) b.last[v] = b.lev[v];
+    for (int v = 0; v < n; v++)
+        for (int o = 0; o < 2; o++) {
+            int x = b.kind[v] == OP_INPUT ? -1 : (o ? b.c[v] : b.a[v]);
+            if (x >= 0 && b.last[x] < b.lev[v]) b.last[x] = b.lev[v];
+        }
+    // outputs: straight to their slots where safe, else moved at level L + 1
+    const int Lm = L + 1;
+    int nn = n;
+    for (int pass = 0; pass < 2; pass++)
+        for (int o = 0; o < b.n_out; o++) {
+            int v = b.out_v[o], dst = b.out_loc[o];
+            if ((b.kind[v] == OP_INPUT) != (pass == 0)) continue;
+            if (b.kind[v] == OP_INPUT && b.loc[v] == dst) continue;
+            bool direct = false;
+            if (b.kind[v] != OP_INPUT && !b.placed[v]) {
+                direct = true;
+                for (int u = 0; u < n && direct; u++)
+                    if (b.kind[u] == OP_INPUT && tb_alias(b.loc[u], dst) && b.last[u] >= b.lev[v])
+                        direct = false;
+            }
+            if (direct) {
+                b.loc[v] = (uint16_t)dst;
+                b.placed[v] = 1;
+                continue;
+            }
+            if (nn >= LH_TB_VALS) {
+                T.error = 1;
+                return;
+            }
+            if (b.kind[v] == OP_INPUT)      // a pass-through must not read a written slot
+                for (int q = 0; q < b.n_out; q++)
+                    if (tb_alias(b.loc[v], b.out_loc[q])) T.error = 1;
+            b.kind[nn] = OP_MOV;
+            b.a[nn] = (int16_t)v;
+            b.c[nn] = -1;
+            b.lev[nn] = (int16_t)Lm;
+            b.last[nn] = (int16_t)Lm;
+            b.thr[nn] = (int8_t)((nn - n) % W);
+            b.seq[nn] = (int16_t)seq++;
+            b.loc[nn] = (uint16_t)dst;
+            b.placed[nn] = 1;
+            if (b.last[v] < Lm) b.last[v] = (int16_t)Lm;
+            nn++;
+        }
+    const int Lend = nn > n ? Lm : L;
+    // temporaries, level by level: the lowest slot whose value was last read
+    // before the level
+    if (max_temps > LH_TB_SLOTS) max_temps = LH_TB_SLOTS;
+    for (int s = 0; s < max_temps; s++) b.slot_last[s] = -2;
+    int temps = 0;
+    for (int l = 0; l <= Lend; l++)
+        for (int v = 0; v < nn; v++) {
+            if (b.placed[v] || b.lev[v] != l) continue;
+            int s = 0;
+            while (s < max_temps && b.slot_last[s] >= l) s++;
+            if (s >= max_temps) {
+                T.error = 1;
+                return;
+            }
+            b.slot_last[s] = b.last[v];
+            b.loc[v] = (uint16_t)(LOC_TMP | s);
+            if (s + 1 > temps) temps = s + 1;
+        }
+    // emit, level by level, as rows of W
+    TapeInfo info;
+    info.first_level = (uint16_t)T.n_levels;
+    info.n_levels = 0;
+    info.width = (uint16_t)W;
+    info.temps = (uint16_t)temps;
+    info.muls = 0;
+    info.rounds = 0;
+    for (int l = 0; l <= Lend; l++) {
+        // the level's operations in placement order, each down its thread's column
+        std::vector<std::pair<int, int> > order;
+        int muls = 0;
+        for (int v = 0; v < nn; v++)
+            if (b.kind[v] != OP_INPUT && b.lev[v] == l) {
+                order.push_back({b.seq[v], v});
+                muls += b.kind[v] == OP_MUL;
+            }
+        std::sort(order.begin(), order.end());
+        std::vector<std::vector<int> > col(W);
+        for (const auto& sv : order) col[b.thr[sv.second]].push_back(sv.second);
+        int rows = 0;
+        for (int t = 0; t < W; t++)
+            if ((int)col[t].size() > rows) rows = (int)col[t].size();
+        if (!rows) continue;
+        int count = 0;                      // positions up to the last operation
+        for (int r = 0; r < rows; r++)
+            for (int t = 0; t < W; t++)
+                if (r < (int)col[t].size()) count = r * W + t + 1;
+        if (T.n_ops + count > LH_TAPE_OPS || T.n_levels >= LH_TAPE_LEVELS) {
+            T.error = 1;
+            return;
+        }
+        T.level_start[T.n_levels++] = (uint16_t)T.n_ops;
+        for (int i = 0; i < count; i++) {
+            int r = i / W, t = i % W;
+            Op& op = T.ops[T.n_ops++];
+            if (r >= (int)col[t].size()) {
+                op = Op{0, 0, 0, OP_NOP, 0};
+                continue;
+            }
+            int v = col[t][r];
+            const int kind = b.kind[v];
+            op.dst = b.loc[v];
+            op.a = b.loc[b.a[v]];
+            op.b = b.c[v] >= 0 ? b.loc[b.c[v]] : op.a;
+            op.kind = kind == OP_MUL ? OP_MUL : OP_LIN;
+            op.k = kind == OP_ADD ? LIN_X : kind == OP_SUB ? LIN_X | LIN_NEG_Y
+                 : kind == OP_NEG ? LIN_NEG_Y : 0;
+        }
+        info.n_levels++;
+        info.muls += muls;
+        info.rounds += (muls + W - 1) / W;
+    }
+    T.level_start[T.n_levels] = (uint16_t)T.n_ops;
+    T.info[id] = info;
+}
+
+// Trace and schedule every tape (on the host: host_tapes(), whose result
+// csrc/bls_tapes.cc hands to the card).
+void build_tapes(Tapes& T, Builder& b) {
+    T.n_ops = 0;
+    T.n_levels = 0;
+    T.error = 0;
+    b.error = 0;
+    {   // Miller setup: the lane's constants
+        TV xp, yp, zp, xz, zp3;
+        Fp2T<TV> xq, yq, zq, zxq, zyq, zq2, zq3, xzq2, ypq3;
+        tb_begin(b);
+        tb_in(b, xp, MS_XP);
+        tb_in(b, yp, MS_YP);
+        tb_in(b, zp, MS_ZP);
+        tb_in(b, xq, MS_XQ);
+        tb_in(b, yq, MS_YQ);
+        tb_in(b, zq, MS_ZQ);
+        miller_setup(xz, zp3, zxq, zyq, zq2, zq3, xzq2, ypq3, xp, yp, zp, xq, yq, zq);
+        tb_out(b, xz, MS_XZ);
+        tb_out(b, zp3, MS_ZP3);
+        tb_out(b, zxq, MS_ZXQ);
+        tb_out(b, zyq, MS_ZYQ);
+        tb_out(b, zq2, MS_ZQ2);
+        tb_out(b, zq3, MS_ZQ3);
+        tb_out(b, xzq2, MS_XZQ2);
+        tb_out(b, ypq3, MS_YPQ3);
+        tb_finish(b, T, TAPE_MILLER_SETUP, MILLER_W, MILLER_TEMPS);
+    }
+    {   // Miller doubling step
+        Fp12T<TV> f;
+        Fp2T<TV> X, Y, Z;
+        TV xz, yp, zp3;
+        tb_begin(b);
+        tb_in(b, f, MS_F);
+        tb_in(b, X, MS_T);
+        tb_in(b, Y, MS_T + 2);
+        tb_in(b, Z, MS_T + 4);
+        tb_in(b, xz, MS_XZ);
+        tb_in(b, yp, MS_YP);
+        tb_in(b, zp3, MS_ZP3);
+        miller_dbl(f, X, Y, Z, xz, yp, zp3);
+        tb_out(b, f, MS_F);
+        tb_out(b, X, MS_T);
+        tb_out(b, Y, MS_T + 2);
+        tb_out(b, Z, MS_T + 4);
+        tb_finish(b, T, TAPE_MILLER_DBL, MILLER_W, MILLER_TEMPS);
+    }
+    {   // Miller add step
+        Fp12T<TV> f;
+        Fp2T<TV> X, Y, Z, xq, yq, zq, zq2, zq3, zxq, zyq, xzq2, ypq3;
+        tb_begin(b);
+        tb_in(b, f, MS_F);
+        tb_in(b, X, MS_T);
+        tb_in(b, Y, MS_T + 2);
+        tb_in(b, Z, MS_T + 4);
+        tb_in(b, xq, MS_XQ);
+        tb_in(b, yq, MS_YQ);
+        tb_in(b, zq, MS_ZQ);
+        tb_in(b, zq2, MS_ZQ2);
+        tb_in(b, zq3, MS_ZQ3);
+        tb_in(b, zxq, MS_ZXQ);
+        tb_in(b, zyq, MS_ZYQ);
+        tb_in(b, xzq2, MS_XZQ2);
+        tb_in(b, ypq3, MS_YPQ3);
+        miller_add(f, X, Y, Z, xq, yq, zq, zq2, zq3, zxq, zyq, xzq2, ypq3);
+        tb_out(b, f, MS_F);
+        tb_out(b, X, MS_T);
+        tb_out(b, Y, MS_T + 2);
+        tb_out(b, Z, MS_T + 4);
+        tb_finish(b, T, TAPE_MILLER_ADD, MILLER_W, MILLER_TEMPS);
+    }
+    {   // G1 doubling, G1 add, G2 add (the G1 lanes, and the joint lanes'
+        // tracks apart where only one is at infinity)
+        Jac<TV> p, q;
+        Jac<Fp2T<TV> > p2, q2;
+        tb_begin(b);
+        tb_in(b, p, LOC_IN0);
+        jac_double(p, p);
+        tb_out(b, p, LOC_OUT);
+        tb_finish(b, T, TAPE_G1_DBL, G1_W, G1_TEMPS);
+        tb_begin(b);
+        tb_in(b, p, LOC_IN0);
+        tb_in(b, q, LOC_IN1);
+        jac_add_formula(p, p, q);
+        tb_out(b, p, LOC_OUT);
+        tb_finish(b, T, TAPE_G1_ADD, G1_W, G1_TEMPS);
+        tb_begin(b);
+        tb_in(b, p2, LOC_IN0);
+        tb_in(b, q2, LOC_IN1);
+        jac_add_formula(p2, p2, q2);
+        tb_out(b, p2, LOC_OUT);
+        tb_finish(b, T, TAPE_G2_ADD, GJ_W, GJ_TEMPS);
+        // the joint track: G1 at +0, G2 at +3
+        tb_begin(b);
+        tb_in(b, p, LOC_IN0);
+        tb_in(b, p2, LOC_IN0 + 3);
+        jac_double(p, p);
+        jac_double(p2, p2);
+        tb_out(b, p, LOC_OUT);
+        tb_out(b, p2, LOC_OUT + 3);
+        tb_finish(b, T, TAPE_G1G2_DBL, GJ_W, GJ_TEMPS);
+        tb_begin(b);
+        tb_in(b, p, LOC_IN0);
+        tb_in(b, p2, LOC_IN0 + 3);
+        tb_in(b, q, LOC_IN1);
+        tb_in(b, q2, LOC_IN1 + 3);
+        jac_add_formula(p, p, q);
+        jac_add_formula(p2, p2, q2);
+        tb_out(b, p, LOC_OUT);
+        tb_out(b, p2, LOC_OUT + 3);
+        tb_finish(b, T, TAPE_G1G2_ADD, GJ_W, GJ_TEMPS);
+    }
+    {   // Fq12 product
+        Fp12T<TV> x, y;
+        tb_begin(b);
+        tb_in(b, x, LOC_IN0);
+        tb_in(b, y, LOC_IN1);
+        fp12_mul(x, x, y);
+        tb_out(b, x, LOC_OUT);
+        tb_finish(b, T, TAPE_FQ12_MUL, FQ12_W, FQ12_TEMPS);
+    }
+    if (b.error) T.error = 1;
+}
+
+// The tapes' shape for reports and checks: [error, operations, levels],
+// then per tape [levels, temporaries, products, rounds, positions
+// (operations and fillers)].
+inline void tape_stats(const Tapes& T, int* out) {
+    out[0] = T.error;
+    out[1] = T.n_ops;
+    out[2] = T.n_levels;
+    for (int t = 0; t < N_TAPES; t++) {
+        const TapeInfo& f = T.info[t];
+        int* o = out + 3 + 5 * t;
+        o[0] = f.n_levels;
+        o[1] = f.temps;
+        o[2] = f.muls;
+        o[3] = f.rounds;
+        o[4] = T.level_start[f.first_level + f.n_levels] - T.level_start[f.first_level];
+    }
+}
+#define TAPE_STATS (3 + 5 * bls::N_TAPES)
+
+// ---- the group kernels on the host --------------------------------------------
+//
+// The tapes, built once; csrc/bls_tapes.cc exports them to the card.  The
+// host build runs every lane of a group kernel in turn, each on its own
+// workspace, with the same arguments as the kernel's launcher: the CPU
+// tests' equivalent of csrc/bls12_381.cu.
+
+inline const Tapes& host_tapes();
+
+inline TapeView host_view() {
+    const Tapes& t = host_tapes();
+    return TapeView{t.ops, t.level_start, 0, t.info};
+}
+
+inline const Tapes& host_tapes() {
+    static Tapes* tapes = nullptr;
+    if (!tapes) {
+        tapes = new Tapes();
+        Builder* b = new Builder();
+        build_tapes(*tapes, *b);
+        delete b;
+    }
+    return *tapes;
+}
+
+inline void host_gj_scalar_mul(const u32* pkx, const u32* pky, const u32* sx, const u32* sy,
+                               const int32_t* digits, u32* PX, u32* PY, u32* PZ, u32* SX,
+                               u32* SY, u32* SZ, long n, int n_digits) {
+    std::vector<Fp> ws(GJ_WS);
+    for (long i = 0; i < n; i++)
+        lane_scalar_mul<GJ_W, true>(Grp{0, 0}, host_view(), ws.data(), i, n, n_digits, pkx, pky,
+                                    i, sx, sy, digits, PX, PY, PZ, SX, SY, SZ);
+}
+
+inline void host_g1_scalar_mul(const u32* xs, const u32* ys, const int32_t* idx,
+                               const int32_t* digits, u32* X, u32* Y, u32* Z, long n,
+                               int n_digits) {
+    std::vector<Fp> ws(G1_WS);
+    for (long i = 0; i < n; i++)
+        lane_scalar_mul<G1_W, false>(Grp{0, 0}, host_view(), ws.data(), i, n, n_digits, xs, ys,
+                                     idx ? (long)idx[i] : i, nullptr, nullptr, digits, X, Y, Z,
+                                     nullptr, nullptr, nullptr);
+}
+
+inline void host_miller(const u32* xp, const u32* yp, const u32* zp, const u32* xq,
+                        const u32* yq, const u32* zq, const uint8_t* mask, u32* out, long n,
+                        long n_out, long sum_lane) {
+    std::vector<Fp> ws(MILLER_WS);
+    for (long i = 0; i < n_out; i++)
+        lane_miller<MILLER_W>(Grp{0, 0}, host_view(), ws.data(), i, n, sum_lane, xp, yp, zp, xq,
+                              yq, zq, mask, out);
+}
+
+inline void host_fq12_mul(const u32* a, const u32* b, u32* out, long n) {
+    std::vector<Fp> ws(FQ12_WS);
+    for (long i = 0; i < n; i++)
+        lane_fq12_mul<FQ12_W>(Grp{0, 0}, host_view(), ws.data(), i, a, b, out);
+}
+#endif
 
 }  // namespace bls

@@ -14,7 +14,10 @@ device route ``bls12_381.final_exp_hard_device``; on the KZG path
 ``kzg.kzg_fused_device``.
 Each checks its tensors here, launches on the current CUDA stream, raises
 on a launch error, and counts its CUDA launches on its ``launches``
-attribute.  The library is built by nvcc at first use, never at import.
+attribute.  The library is built by nvcc at first use, never at import;
+the tapes of its group kernels (``csrc/bls12_381.cuh``) are built on the
+host by ``csrc/bls_tapes.cc`` (g++), the code the CPU tests run, and handed
+to it as it loads.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from lighthouse_tpu_torch.crypto.bls.fields import R as GROUP_R
-from lighthouse_tpu_torch.native import build_cuda_lib
+from lighthouse_tpu_torch.native import build_cuda_lib, build_host_lib
 from lighthouse_tpu_torch.ops.bigint import P_INT
 
 # C launchers: (pointer arguments, integer arguments) per function of each
@@ -45,6 +48,7 @@ _SIGNATURES = {
         "lh_g1_affine": (6, 1),
         "lh_g1_subgroup": (3, 1),
         "lh_final_exp_hard": (2, 1),
+        "lh_fp_mul_chain": (4, 2),
     },
     "kzg": {                                  # csrc/kzg.cu
         "lh_fr_to_mont": (2, 1),
@@ -178,9 +182,47 @@ def miller_reduce_fp_muls(live: np.ndarray) -> int:
     return int(live.sum()) * MILLER_LANE + tree_products(live)[0] * FP12_MUL
 
 
+def tapes_lib() -> ctypes.CDLL:
+    """The host library of the group kernels' tapes (``csrc/bls_tapes.cc``),
+    built at first use, with its argument types set."""
+    h = build_host_lib("bls_tapes")
+    h.lh_tapes_size.restype = ctypes.c_longlong
+    h.lh_build_tapes.argtypes = [ctypes.c_void_p]
+    h.lh_build_tapes.restype = ctypes.c_int
+    h.lh_tape_stats.argtypes = [ctypes.c_void_p]
+    h.lh_tape_stats.restype = None
+    return h
+
+
+TAPE_NAMES = ("miller_setup", "miller_dbl", "miller_add", "g1_dbl", "g1_add", "g2_add",
+              "g1g2_dbl", "g1g2_add", "fq12_mul")
+GROUP_KERNELS = ("k_gj_scalar_mul", "k_g1_scalar_mul", "k_miller", "k_fq12_mul")
+GROUP_TAPES = {"k_gj_scalar_mul": TAPE_NAMES[4:8], "k_g1_scalar_mul": TAPE_NAMES[3:5],
+               "k_miller": TAPE_NAMES[0:3], "k_fq12_mul": TAPE_NAMES[8:9]}
+
+
+def tape_stats() -> dict:
+    """Per tape its levels, temporaries, products, rounds (a level's
+    products over its group's width, rounded up) and positions (operations
+    and fillers, 8 bytes each); per group kernel its lane's workspace (Fp
+    slots), group width and the tapes it stages in shared memory."""
+    n = len(TAPE_NAMES)
+    out = (ctypes.c_int * (3 + 5 * n + 8))()
+    tapes_lib().lh_tape_stats(out)
+    if out[0]:
+        raise RuntimeError("the group kernels' tapes did not build")
+    tapes = {name: dict(zip(("levels", "temps", "products", "rounds", "positions"),
+                            out[3 + 5 * i:8 + 5 * i]))
+             for i, name in enumerate(TAPE_NAMES)}
+    more = out[3 + 5 * n:]
+    kernels = {k: {"workspace_slots": more[i], "width": more[4 + i], "tapes": GROUP_TAPES[k]}
+               for i, k in enumerate(GROUP_KERNELS)}
+    return {"tapes": tapes, "kernels": kernels}
+
+
 def lib(name: str = "bls12_381") -> ctypes.CDLL:
     """The CUDA library ``csrc/<name>.cu``, built at first use, with its
-    launchers' argument types set."""
+    launchers' argument types set (and, for ``bls12_381``, its tapes)."""
     h = build_cuda_lib(name)
     if h.lh_error_string.restype is not ctypes.c_char_p:
         for fn_name, (n_ptr, n_int) in _SIGNATURES[name].items():
@@ -189,6 +231,15 @@ def lib(name: str = "bls12_381") -> ctypes.CDLL:
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         h.lh_error_string.argtypes = [ctypes.c_int]
+        if name == "bls12_381":
+            t = tapes_lib()
+            blob = ctypes.create_string_buffer(t.lh_tapes_size())
+            if t.lh_build_tapes(blob) != 0:
+                raise RuntimeError("the group kernels' tapes did not build")
+            h.lh_set_tapes.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+            h.lh_set_tapes.restype = ctypes.c_int
+            if h.lh_set_tapes(blob, len(blob)) != 0:
+                raise RuntimeError("lh_set_tapes refused the tapes (a layout mismatch)")
         h.lh_error_string.restype = ctypes.c_char_p
     return h
 

@@ -3,14 +3,23 @@ compiled as host C++ with g++, against the plain PyTorch versions.
 
 A CUDA kernel has no interpret mode, but every kernel here is a thin
 ``__global__`` loop over a ``lane_*`` function of the header, which also
-compiles for the host.  Running those functions over the same inputs as
-the plain versions checks the kernels' arithmetic (field, tower, curve
-formulas, Miller loop, ψ check, affine conversion) bit for bit without a
-card; the build with a multiply counter also checks the Fp multiplication
-counts that bound the kernels' times (``ops/bls_cuda.py``).  The test
-marked ``cuda`` runs the kernels themselves against the plain versions.
+compiles for the host: a one-thread lane directly, a group lane (scalar
+multiplications, Miller loop, Fq12 product) through the header's host
+versions of the group kernels, which run a group's threads one after
+another.  Running them over the same inputs as the plain versions checks
+the kernels' arithmetic (field, tower, curve formulas, Miller loop, ψ
+check, affine conversion) bit for bit without a card, the group lanes with
+their threads in ascending and in descending order (an operation reading a
+slot another thread writes in the same level would differ); the build with
+a multiply counter also checks
+the Fp multiplication counts that bound the kernels' times
+(``ops/bls_cuda.py``).  The group lanes are also held to the JAX package's
+host oracles (curve multiples in affine form, Miller values), imported in
+those tests only.  The test marked ``cuda`` runs the kernels themselves
+against the plain versions.
 """
 
+import contextlib
 import ctypes
 import subprocess
 
@@ -45,12 +54,11 @@ void h_fp(int op, const u32* a, const u32* b, u32* r, long n) {
         st(r, i, z);
     }
 }
-void h_fq12_mul(const u32* a, const u32* b, u32* out, long n) {
-    for (long i = 0; i < n; i++) lane_fq12_mul(i, a, b, out);
-}
+void h_reverse(int on) { level_order_reversed = on != 0; }
+void h_fq12_mul(const u32* a, const u32* b, u32* out, long n) { host_fq12_mul(a, b, out, n); }
 void h_gj(const u32* pkx, const u32* pky, const u32* sx, const u32* sy, const int32_t* d,
           u32* PX, u32* PY, u32* PZ, u32* SX, u32* SY, u32* SZ, long n) {
-    for (long i = 0; i < n; i++) lane_gj_scalar_mul(i, n, 16, pkx, pky, sx, sy, d, PX, PY, PZ, SX, SY, SZ);
+    host_gj_scalar_mul(pkx, pky, sx, sy, d, PX, PY, PZ, SX, SY, SZ, n, 16);
 }
 void h_halves(int g2, u32* X, u32* Y, u32* Z, long half) {
     for (long i = 0; i < half; i++) {
@@ -59,7 +67,7 @@ void h_halves(int g2, u32* X, u32* Y, u32* Z, long half) {
 }
 void h_miller(const u32* xp, const u32* yp, const u32* zp, const u32* xq, const u32* yq,
               const u32* zq, const uint8_t* mask, u32* out, long n, long n_out, long sum_lane) {
-    for (long i = 0; i < n_out; i++) lane_miller(i, n, sum_lane, xp, yp, zp, xq, yq, zq, mask, out);
+    host_miller(xp, yp, zp, xq, yq, zq, mask, out, n, n_out, sum_lane);
 }
 void h_psi(const u32* xq, const u32* yq, uint8_t* out, long n) {
     for (long i = 0; i < n; i++) lane_g2_subgroup(i, xq, yq, out);
@@ -112,6 +120,45 @@ def _counted(lib, fn, *args) -> int:
     before = lib.h_count()
     fn(*args)
     return lib.h_count() - before
+
+
+@contextlib.contextmanager
+def _level_order(lib, reverse: bool):
+    """Run the group lanes' level loops in descending order if ``reverse``."""
+    lib.h_reverse(int(reverse))
+    try:
+        yield
+    finally:
+        lib.h_reverse(0)
+
+
+def _g2_affine(X, Y, Z) -> list:
+    """Jacobian G2 word rows [n, 2, 12] -> affine points, ``cv.INF`` at Z = 0."""
+    out = []
+    for x, y, z in zip(*((Fq2(*bi.mont_limbs_to_ints(r)) for r in rows) for rows in (X, Y, Z))):
+        if z == Fq2(0, 0):
+            out.append(cv.INF)
+            continue
+        zi = z.inv()
+        out.append((x * zi * zi, y * zi * zi * zi))
+    return out
+
+
+def _jax_g2(q):
+    from lighthouse_tpu.crypto.bls.fields import Fq2 as JFq2
+    return None if q is cv.INF else (JFq2(q[0].a, q[0].b), JFq2(q[1].a, q[1].b))
+
+
+def _from_jax_g2(q):
+    return cv.INF if q is None else (Fq2(q[0].a, q[0].b), Fq2(q[1].a, q[1].b))
+
+
+def _coeffs(f) -> list:
+    """An Fq12 of either package as canonical integers."""
+    return [int(c) for f6 in (f.c0, f.c1) for f2 in (f6.c0, f6.c1, f6.c2) for c in (f2.a, f2.b)]
+
+
+ORDERS = pytest.mark.parametrize("reverse", [False, True], ids=["ascending", "descending"])
 
 
 def test_field_ops_and_fq12_product(lanes):
@@ -250,6 +297,117 @@ def test_blinded_final_lanes_equal_plain(lanes):
     assert (bi.from_mont(xa[0]), bi.from_mont(ya[0])) == cv.g1_add(pts[0], u)
 
 
+@ORDERS
+def test_joint_scalar_mul_lanes_equal_plain_and_the_jax_curve(lanes, reverse):
+    """The G1 x G2 lanes in both level orders: a random scalar, a zero one,
+    leading and inner zero digits, all digits 15, one; a G1 point of order 3
+    (6P: its table's entries 3 and 6 are infinity, so its track runs apart
+    from the G2 one), a G2 point of order 13 (26Q sums to infinity) and Q =
+    (0, 0) (its doubling is infinity: the G2 track apart).  Equal to the
+    plain version word for word; each track of a point in its group equals
+    the JAX package's curve multiple."""
+    from lighthouse_tpu.crypto.bls import curve as jcv
+
+    rng = np.random.default_rng(12)
+    g1, g2 = cv.g1_generator(), cv.g2_generator()
+    ps = [cv.g1_mul(g1, 3 + i) for i in range(8)]
+    qs = [cv.g2_mul(g2, 5 + i) for i in range(8)]
+    ks = [int(rng.integers(1, 1 << 63)), 0, 0x0F00000000000301, 6, 26, (1 << 64) - 1, 1, 5]
+    ps[3] = T.ORDER3_G1
+    qs[4] = T.SMALL_ORDER_G2
+    qs[7] = (Fq2(0, 0), Fq2(0, 0))
+    n = len(ks)
+    digits = ec.scalars_to_digits(ks).astype(np.int32)
+    px, py = (_np(t) for t in ec.g1_words(ps, CPU))
+    qx, qy = (_np(t) for t in ec.g2_words(qs, CPU))
+    outs = [np.zeros((n, 12), np.uint32) for _ in range(3)] + [np.zeros((n, 2, 12), np.uint32)
+                                                             for _ in range(3)]
+    with _level_order(lanes, reverse):
+        lanes.h_gj(_ptr(px), _ptr(py), _ptr(qx), _ptr(qy), _ptr(digits),
+                   *[_ptr(o) for o in outs], ctypes.c_long(n))
+    plain = ec.gj_scalar_mul_windowed(_t(px), _t(py), _t(qx), _t(qy),
+                                      torch.from_numpy(digits.astype(np.int64)))
+    for o, pl in zip(outs, list(plain[0]) + list(plain[1])):
+        assert np.array_equal(o, _np(pl))
+    g1s = msm.jacobian_rows_to_affine(*outs[:3])
+    g2s = _g2_affine(*outs[3:])
+    for i, k in enumerate(ks):
+        assert g1s[i] == jcv.g1_mul(ps[i], k)
+        if i != 7:
+            assert g2s[i] == _from_jax_g2(jcv.g2_mul(_jax_g2(qs[i]), k))
+    assert g1s[1] is g2s[1] is g1s[3] is g2s[4] is cv.INF
+
+
+@ORDERS
+def test_miller_lanes_in_both_orders_equal_plain_and_the_jax_oracle(lanes, reverse):
+    """Miller lanes as the pipeline launches them, in both level orders:
+    affine lanes 0 and 3, a masked lane 1, lane 2 with P and Q Jacobian
+    (Zp = 5, Zq random), the Σ lane 4 with Zq = 0 (off), padding lanes 5-7.
+    The live lanes equal the plain version word for word; the affine ones
+    equal the JAX package's ``miller_loop_fast``, the Jacobian one after the
+    final exponentiation; then the Fq12 tree over the 8 lanes equals the
+    plain product and, after the final exponentiation, the JAX package's
+    ``multi_miller_fast`` of the live pairs."""
+    from lighthouse_tpu.crypto.bls import fields as jfields
+    from lighthouse_tpu.crypto.bls import pairing_fast as jpf
+    from lighthouse_tpu_torch.ops import native_bls
+
+    g1, g2 = cv.g1_generator(), cv.g2_generator()
+    n, n_out = 5, 8
+    ps = [cv.g1_mul(g1, 7 + 3 * i) for i in range(n)]
+    qs = [cv.g2_mul(g2, 9 + 2 * i) for i in range(n)]
+    xp, yp = (_np(t) for t in ec.g1_words(ps, CPU))
+    xq, yq = (_np(t) for t in ec.g2_words(qs, CPU))
+    zp = np.tile(bi.ONE_M, (n, 1))
+    zq = np.zeros((n, 2, 12), np.uint32)
+    zq[:, 0] = bi.ONE_M
+    # lane 2 in Jacobian form: (x z^2, y z^3, z) for P, the same over Fq2 for Q
+    z, w = 5, Fq2(0x1234567, 0x89ABCDEF)
+    xp[2], yp[2], zp[2] = (bi.ints_to_mont_limbs([v % P])[0]
+                           for v in (ps[2][0] * z * z, ps[2][1] * z ** 3, z))
+    jq = (qs[2][0] * w * w, qs[2][1] * w * w * w, w)
+    for rows, v in zip((xq, yq, zq), jq):
+        rows[2] = bi.ints_to_mont_limbs([v.a, v.b])
+    zq[4] = 0
+    mask = np.array([1, 0, 1, 1, 1], np.uint8)
+    out = np.zeros((n_out, 12, 12), np.uint32)
+    with _level_order(lanes, reverse):
+        count = _counted(lanes, lanes.h_miller, _ptr(xp), _ptr(yp), _ptr(zp), _ptr(xq), _ptr(yq),
+                         _ptr(zq), _ptr(mask), _ptr(out), ctypes.c_long(n),
+                         ctypes.c_long(n_out), ctypes.c_long(4))
+    live = np.array([1, 0, 1, 1, 0, 0, 0, 0], bool)
+    assert count == int(live.sum()) * bls_cuda.MILLER_LANE
+    plain = t12.fq12_flat(t12.batch_miller_loop_plain(*(_t(a) for a in (xp, yp, zp, xq, yq, zq))))
+    one = t12.fq12_to_words(Fq12.ONE)
+    for i in range(n_out):
+        assert np.array_equal(out[i], _np(plain[i]) if live[i] else one), i
+    fs = [t12.fq12_from_words(o) for o in out]
+    jps = [(p, _jax_g2(q)) for p, q in zip(ps, qs)]
+    for i in (0, 3):
+        assert _coeffs(fs[i]) == _coeffs(jpf.miller_loop_fast(*jps[i]))
+
+    def fe(f):
+        return _coeffs(native_bls.final_exp(f))
+
+    def jax_fe(f):
+        return _coeffs(jfields.final_exponentiation_fast(f))
+
+    assert fe(fs[2]) == jax_fe(jpf.miller_loop_fast(*jps[2]))
+    # the Fq12 tree: rows i and i + half -> row i, a factor of one costing nothing
+    tree = out.copy()
+    half, count = n_out // 2, 0
+    with _level_order(lanes, reverse):
+        while half >= 1:
+            count += _counted(lanes, lanes.h_fq12_mul, _ptr(tree), _ptr(tree[half:]), _ptr(tree),
+                              ctypes.c_long(half))
+            half //= 2
+    assert count == bls_cuda.miller_reduce_fp_muls(live) - int(live.sum()) * bls_cuda.MILLER_LANE
+    want = t12.reduce_product_plain(t12.fq12_nested(_t(out)), torch.from_numpy(live))
+    assert np.array_equal(tree[0], _np(t12.fq12_flat(want))[0])
+    assert fe(t12.fq12_from_words(tree[0])) == jax_fe(
+        jpf.multi_miller_fast([jps[i] for i in (0, 2, 3)]))
+
+
 def test_multiply_counts_of_the_path_shapes():
     """The bound's work at the shapes of the main path (see PERF.md), by
     hand: per live scalar lane with 16 nonzero digits two window tables of
@@ -285,3 +443,25 @@ def test_every_bls_kernel_matches_plain_on_the_card():
     assert all(k.launches > 0 for k in bb.KERNELS), {k.__name__: k.launches for k in bb.KERNELS}
     a = bi.to_tensor(np.stack([t12.fq12_to_words(Fq12.ONE)] * 2), "cuda")
     assert torch.equal(dp.fq12_mul_device(a, a).cpu(), dp.fq12_mul_plain(a.cpu(), a.cpu()))
+    # the group kernels' edge batches: one lane, every Miller lane masked,
+    # every scalar zero; an Fq12 factor of one
+    rng = np.random.default_rng(5)
+    eight, one = (_pipeline_args(T.microbench_sets(k), rng) for k in (8, 1))
+    for args in (one, eight[:7] + (torch.zeros_like(eight[7]),) + eight[8:],
+                 eight[:6] + (torch.zeros_like(eight[6]),) + eight[7:]):
+        host = tuple(x.cpu() if isinstance(x, torch.Tensor) else x for x in args)
+        assert torch.equal(bb.pipeline_device(*args).cpu(), bb.pipeline_plain(*host))
+    f = bi.to_tensor(np.stack([t12.fq12_to_words(Fq12(Fq6(Fq2(3, 4), Fq2(5, 6), Fq2(7, 8)),
+                                                      Fq6(Fq2(9, 1), Fq2(2, 3), Fq2(4, 5))))]),
+                     "cuda")
+    for x, y in ((f, a[:1]), (a[:1], f)):
+        assert torch.equal(dp.fq12_mul_device(x, y).cpu(), dp.fq12_mul_plain(x.cpu(), y.cpu()))
+
+
+def _pipeline_args(sets, rng):
+    """``pipeline_device`` arguments on the card for single-key sets."""
+    sig_pts = [s.signature.point for s in sets]
+    h2 = [bb._hash_to_g2_cached(s.message) for s in sets]
+    px, py = (bi.ints_to_mont_limbs([s.pubkeys[0].point[k] for s in sets]) for k in (0, 1))
+    scalars = [int(r) for r in rng.integers(1, 1 << 63, len(sets))]
+    return bb._chunk_layout(sets, sig_pts, h2, px, py, scalars, torch.device("cuda"))

@@ -4,13 +4,17 @@ against the plain PyTorch versions.
 
 Every kernel of the KZG path is a thin ``__global__`` loop over functions of
 those headers (``k_fr_eval`` runs its phases with a barrier between them;
-the harness here runs each phase as a loop over the block's threads).
-Running them on the same inputs as the plain versions checks the kernels'
-arithmetic bit for bit without a card; the build with multiply counters
-also checks the Fr and Fp product counts that bound the kernels' times.
-The test marked ``cuda`` runs the kernels themselves.
+the harness here runs each phase as a loop over the block's threads; the
+group lanes of the G1 scalar multiplication, the Miller loop and the Fq12
+product run through the header's host versions of those kernels, their
+threads in the order the tests set).  Running them on the same inputs as
+the plain versions checks the kernels' arithmetic bit for bit without a
+card; the build with multiply counters also checks the Fr and Fp product
+counts that bound the kernels' times.  The test marked ``cuda`` runs the
+kernels themselves.
 """
 
+import contextlib
 import ctypes
 import subprocess
 
@@ -86,9 +90,10 @@ void h_eval(const uint32_t* f, const uint32_t* zs, const uint32_t* roots, const 
         fr::st(y, b, out);
     }
 }
+void h_reverse(int on) { bls::level_order_reversed = on != 0; }
 void h_g1_mul(const uint32_t* xs, const uint32_t* ys, const int32_t* d, uint32_t* X, uint32_t* Y,
               uint32_t* Z, long n, int n_digits) {
-    for (long i = 0; i < n; i++) bls::lane_g1_scalar_mul(i, n, n_digits, xs, ys, d, X, Y, Z);
+    bls::host_g1_scalar_mul(xs, ys, nullptr, d, X, Y, Z, n, n_digits);
 }
 void h_halves(uint32_t* X, uint32_t* Y, uint32_t* Z, long half) {
     for (long i = 0; i < half; i++) bls::lane_add_halves<bls::Fp>(i, half, X, Y, Z);
@@ -96,11 +101,10 @@ void h_halves(uint32_t* X, uint32_t* Y, uint32_t* Z, long half) {
 void h_miller(const uint32_t* xp, const uint32_t* yp, const uint32_t* zp, const uint32_t* xq,
               const uint32_t* yq, const uint32_t* zq, const uint8_t* mask, uint32_t* out, long n,
               long n_out) {
-    for (long i = 0; i < n_out; i++)
-        bls::lane_miller(i, n, -1, xp, yp, zp, xq, yq, zq, mask, out);
+    bls::host_miller(xp, yp, zp, xq, yq, zq, mask, out, n, n_out, -1);
 }
 void h_fq12_halves(uint32_t* f, long half) {
-    for (long i = 0; i < half; i++) bls::lane_fq12_mul(i, f, f + (size_t)half * 144, f);
+    bls::host_fq12_mul(f, f + (size_t)half * 144, f, half);
 }
 }
 """
@@ -144,6 +148,16 @@ def _counted(counter, fn, *args) -> int:
     before = counter()
     fn(*args)
     return counter() - before
+
+
+@contextlib.contextmanager
+def _level_order(lib, reverse: bool):
+    """Run the group lanes' level loops in descending order if ``reverse``."""
+    lib.h_reverse(int(reverse))
+    try:
+        yield
+    finally:
+        lib.h_reverse(0)
 
 
 def _fr_vals(n: int, seed: int) -> list[int]:
@@ -253,6 +267,45 @@ def test_g1_scalar_mul_and_fold_lanes_equal_plain(lanes):
     assert msm.jacobian_rows_to_affine(X[:2], Y[:2], Z[:2]) == want
 
 
+@pytest.mark.parametrize("reverse", [False, True], ids=["ascending", "descending"])
+def test_g1_scalar_mul_lanes_in_both_orders_equal_plain_and_the_jax_curve(lanes, reverse):
+    """The G1 lanes of row 13 in both level orders, at 255-bit scalars: a
+    random one, zero, r (the last add sums P and -P to infinity), r - 1, one,
+    leading and inner zero digits, and a point of order 3 times 3 (its
+    table's entries 3, 6, 10 and 12 are infinity, so 7, 11 and 13 copy the
+    base).  Equal to the
+    plain version word for word and, in affine form, to the JAX package's
+    ``g1_mul``; the products are those ``bls_cuda`` counts for every lane
+    whose table has no infinity entry, and the order-3 lane's table."""
+    from lighthouse_tpu.crypto.bls import curve as jcv
+
+    g1 = cv.g1_generator()
+    rng = np.random.default_rng(14)
+    pts = [cv.g1_mul(g1, 5 + 7 * i) for i in range(8)]
+    ks = [int.from_bytes(rng.bytes(32), "big") % R, 0, R, R - 1, 1,
+          0x0F000000000000000000000000000000000000000000000000000000000301,
+          int.from_bytes(rng.bytes(32), "big") % R, 3]
+    pts[7] = T.ORDER3_G1
+    n = len(ks)
+    xs, ys = (bi.to_numpy(t) for t in ec.g1_words(pts, CPU))
+    digits = ec.scalars_to_digits(ks, n_bits=256).astype(np.int32)
+    X, Y, Z = (np.zeros((n, 12), np.uint32) for _ in range(3))
+    with _level_order(lanes, reverse):
+        count = _counted(lanes.h_fp_count, lanes.h_g1_mul, _ptr(xs), _ptr(ys), _ptr(digits),
+                         _ptr(X), _ptr(Y), _ptr(Z), ctypes.c_long(n), ctypes.c_int(64))
+    plain = ec.g1_scalar_mul_windowed(bi.u64(_t(xs)), bi.u64(_t(ys)),
+                                      torch.from_numpy(digits.astype(np.int64)))
+    for got, want in zip((X, Y, Z), plain):
+        assert np.array_equal(got, bi.to_numpy(want))
+    got = msm.jacobian_rows_to_affine(X, Y, Z)
+    assert got == [jcv.g1_mul(p, k) for p, k in zip(pts, ks)]
+    assert got[1] is got[2] is got[7] is cv.INF and got[3] == cv.g1_neg(pts[3])
+    # lane 7: the table's 7 doublings and the adds to entries 3, 5, 9 and 15
+    # (entries 6, 10 and 12 are infinity, so 7, 11 and 13 copy the base)
+    assert count == bls_cuda.g1_scalar_mul_fp_muls(digits[:, :7]) + 7 * bls_cuda.JAC_DOUBLE + \
+        4 * bls_cuda.JAC_ADD
+
+
 def test_msm_g1_tensor_route_equals_the_host_seam(monkeypatch):
     """``msm_g1`` through row 13's plain version (forced at 16 lanes, padded
     to 32) gives the commitment the native host seam gives."""
@@ -344,3 +397,25 @@ def test_every_kzg_kernel_matches_plain_on_the_card():
     assert kzg.verify_blob_kzg_proof_batch(cell["blobs"][:3], cell["commitments"][:3],
                                            cell["proofs"][:3], settings)
     assert all(k.launches > 0 for k in kzg.KERNELS), {k.__name__: k.launches for k in kzg.KERNELS}
+    # the group kernels' edge batches: one lane, every scalar zero, every
+    # Miller lane masked
+    g1 = cv.g1_generator()
+    pts = [cv.g1_mul(g1, 3 + i) for i in range(8)]
+    xs, ys, digits = msm._fold_lanes(pts, [R - 1 - i for i in range(8)], 8, torch.device("cuda"))
+    zero = torch.zeros_like(digits)
+    xq, yq = settings.g2_rows(torch.device("cuda"))
+    cases = [(msm.fold_device, msm.fold_plain, (xs[:1], ys[:1], digits[:, :1].contiguous(), 1)),
+             (msm.fold_device, msm.fold_plain, (xs, ys, zero, 2)),
+             (kzg.kzg_fused_device, kzg.kzg_fused_plain, (xs[:2], ys[:2],
+                                                          digits[:, :2].contiguous(), xq, yq)),
+             (kzg.kzg_fused_device, kzg.kzg_fused_plain, (xs, ys, zero, xq, yq))]
+    mp = t12.points_to_device([(pts[0], cv.g2_generator()), (pts[1], cv.g2_generator())])
+    mr = tuple(bi.to_tensor(c, "cuda") for c in mp[:4]) + (torch.from_numpy(mp[4]).cuda(),)
+    cases += [(t12.miller_reduce_device, t12.miller_reduce_plain, tuple(x[:1] for x in mr)),
+              (t12.miller_reduce_device, t12.miller_reduce_plain,
+               mr[:4] + (torch.zeros_like(mr[4]),))]
+    for kernel, plain, args in cases:
+        got, want = kernel(*args), plain(*(x.cpu() if isinstance(x, torch.Tensor) else x
+                                           for x in args))
+        for g_, w_ in zip(*(x if isinstance(x, tuple) else (x,) for x in (got, want))):
+            assert torch.equal(g_.cpu(), w_), kernel.__name__

@@ -41,8 +41,7 @@ extern "C" {
 unsigned long long h_fp_count() { return bls::bls_fp_mul_count; }
 void h_gather(const uint32_t* tx, const uint32_t* ty, const int32_t* idx, const int32_t* d,
               uint32_t* X, uint32_t* Y, uint32_t* Z, long n, int n_digits) {
-    for (long i = 0; i < n; i++)
-        bls::lane_g1_gather_scalar_mul(i, n, n_digits, tx, ty, idx, d, X, Y, Z);
+    bls::host_g1_scalar_mul(tx, ty, idx, d, X, Y, Z, n, n_digits);
 }
 void h_halves(uint32_t* X, uint32_t* Y, uint32_t* Z, long half) {
     for (long i = 0; i < half; i++) bls::lane_add_halves<bls::Fp>(i, half, X, Y, Z);
