@@ -29,17 +29,19 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
 6. Each BLS12-381 kernel's ptxas line (stack frame, spills, registers,
    stack, static shared memory; a group kernel that spills fails the run),
    the group kernels' widths and dynamic shared memory and their tapes'
-   levels, products and rounds, the Fp product's cycles in a chain of one
+   levels, products, rounds and rows (the ψ check's doubling, mixed add
+   and tail among them), the Fp product's cycles in a chain of one
    warp alone (held to Python integers); then each kernel against its
    plain PyTorch version on the card at the main path's shapes, tolerance 0
    (integer arithmetic): the verify pipeline at the block batch's flat 256
    lanes and the 1k batch's grouped 512 lanes, the ψ subgroup check at 256
    and 1024 lanes with a point outside G2 and a point of order 13 (both
-   must read False), the blinded pubkey fold at 262,144 lanes and the
+   must read False; the ψ check's time also as cycles of a lane per tape
+   level and per row), the blinded pubkey fold at 262,144 lanes and the
    chunk-partial Fq12 product.  Times every kernel and plain version with
    CUDA events.  Then edge batches, compared only: the pipeline at one
-   lane, with every Miller lane masked and with every scalar zero, and an
-   Fq12 product with a factor of one.
+   lane, with every Miller lane masked and with every scalar zero, an
+   Fq12 product with a factor of one, and the ψ check at 3 lanes.
 7. The BLS main path: ``verify_signature_sets(backend="cuda")`` on the 1k-set
    microbench and on the 131 sets of one mainnet block at 2^20 validators,
    each cold once, then timed with fresh signatures (decompression and the
@@ -119,13 +121,18 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     launched in (c), row 12 once in (f).
 14. Row 9, the hard part of the final exponentiation
     (``bls12_381.final_exp_hard_device``, ``csrc/bls12_381.cu``
-    ``lh_final_exp_hard``) against its plain PyTorch version on the card,
-    tolerance 0 (integer arithmetic), on 1 lane, on 132 lanes and on the
-    identity, and against the host oracle ``fields.final_exp_hard``; its
-    time, bound and plain time; then the block batch, its wrong-message
-    twin and the 768-blob KZG batch must give the same verdicts under
-    ``LHGPU_DEVICE_FINAL_EXP=0`` (the native host final exponentiation)
-    and ``=1`` (row 9), which must launch once a batch.
+    ``lh_final_exp_hard``, a warp a lane over its tapes): its ptxas line
+    (a spill fails the run) and tapes, then against its plain PyTorch
+    version on the card, tolerance 0 (integer arithmetic), on 1 lane, on
+    132 lanes and on the identity, and against the host oracle
+    ``fields.final_exp_hard``; its time (also as cycles of a lane per tape
+    level and per row), bound and plain time; then the route the unset
+    ``LHGPU_DEVICE_FINAL_EXP`` takes here, and the block batch, its
+    wrong-message twin and the 768-blob KZG batch must give the same
+    verdicts under ``LHGPU_DEVICE_FINAL_EXP=0`` (the native host final
+    exponentiation, no row 9) and ``=1`` (row 9), which must launch once a
+    batch.  Every other phase runs with the variable unset: on the card,
+    row 9.
 15. Block verify end to end (BASELINE config 2, ``testing.block_cell``: a
     2^20-validator mainnet-preset Deneb state and 3 consecutive full
     blocks, each of 128 aggregate attestations over whole committees of
@@ -136,7 +143,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     fresh copies of the parent state advanced to the block's slot) with a
     stage split (shuffle, sets, verify with its aggregate, pipeline and
     final exponentiation, transition), held to BASELINE's 20 ms (printed
-    as met or not met; a miss does not fail the run); and
+    as met or not met; a miss does not fail the run), the final
+    exponentiation stage's p50 of 3 more runs per route beside the
+    default route (the device's is to be at least 25% below the native
+    one; printed, not a failure); and
     ``BeaconChain.process_block`` of the three blocks
     (``block_import_p50_ms``, split into gossip, signatures, copy, advance,
     transition, state root, import).  Launch counts are read over these
@@ -181,6 +191,15 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64          # int32 ALU lanes per Hopper SM and clock
 IMAD_LANES_PER_SM = 64           # 32-bit integer multiply-adds per SM and clock
 
+# calls of each row's wrapper over its main path, beside the table's
+# launches: a tree wrapper launches once per level (its ``calls``
+# counter), the others once a call
+CALLS: dict = {}
+
+
+def calls_of(fn) -> int:
+    return getattr(fn, "calls", fn.launches)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -194,6 +213,7 @@ def smi(query: str) -> str:
 
 def main() -> int:
     t_start = time.perf_counter()
+    CALLS.clear()
     import torch
 
     if not torch.cuda.is_available():
@@ -336,6 +356,7 @@ def main() -> int:
     per_slot = {k: (launches[k] - before_slots[k]) / SLOTS for k in launches}
     for name in table:
         table[name]["launches"] = launches[f"{name}_device"]
+    CALLS.update({k.__name__.removesuffix("_device"): calls_of(k) for k in sha.KERNELS})
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise SystemExit(f"kernels never launched on the main path: {idle}")
@@ -406,9 +427,11 @@ def main() -> int:
     epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s)
     kzg_batch = kzg_phases(torch, np, native, dev, table, build_s, max_mhz)
     ingest_phases(torch, np, dev, table, max_mhz)
-    final_exp_phase(torch, np, dev, table, max_mhz, block_sets, kzg_batch)
+    final_exp_phase(torch, np, native, dev, table, max_mhz, block_sets, kzg_batch)
     del block_sets, kzg_batch
     block_phase(torch, np, dev, table)
+    log(f"calls on the main paths (the table's launches count a tree kernel's levels): "
+        f"{ {k: CALLS[k] for k in table} }")
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from start to the kernel table")
 
     print(json.dumps({"kernels": list(table.values())}))
@@ -474,8 +497,8 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
             f"dynamic shared memory a warp-sized block {v['workspace_slots'] * 48 * 32 // v['width']}"
             f" bytes of workspaces + about {staged} bytes of staged tapes")
     log(f"  tapes (levels, temporaries, products, rounds of a level's products over the group "
-        f"width, positions): { {t: tuple(v.values()) for t, v in stats['tapes'].items()} }")
-    fp_mul_cycles(torch, np, dev, bls_cuda, bi, max_mhz)
+        f"width, positions, rows): { {t: tuple(v.values()) for t, v in stats['tapes'].items()} }")
+    fp_cycles = fp_mul_cycles(torch, np, dev, bls_cuda, bi, max_mhz)
     t0 = time.perf_counter()
     micro = T.microbench_sets(1024)
     block = T.block_signature_sets(BLS_SEED)
@@ -547,6 +570,9 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
         bound_ms, bound_by = bound(fp_muls, nbytes)
         log(f"kernel {label}: == plain (max err {err}); {ms:.4f} ms, plain {plain_ms:.2f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {fp_muls} Fp products)")
+        if name == "g2_subgroup":
+            lane_cycles(stats, bls_cuda.PSI_TAPES, bls_cuda.PSI_OTHER_LEVELS, ms, max_mhz,
+                        fp_cycles, label)
         if name not in table:       # the table keeps the block batch's shapes
             table[name] = dict(name=name, route="cuda",
                                source="lighthouse_tpu_torch/csrc/bls12_381.cu", replaces=replaces,
@@ -571,8 +597,15 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
         err = max_err(dp.fq12_mul_device(x, y), dp.fq12_mul_plain(x, y))
         if err != 0:
             raise SystemExit(f"fq12_mul with a factor of one: kernel disagrees (max err {err})")
+    # the ψ check at an odd lane count: the last warp's second group idles
+    pts = [T.SMALL_ORDER_G2, cv.g2_generator(), T.non_subgroup_point(5)]
+    xq, yq = ec.g2_words(pts, dev)
+    got, want = bb.g2_subgroup_device(xq, yq), bb.g2_subgroup_plain(xq, yq)
+    torch.cuda.synchronize()
+    if got.tolist() != want.tolist() or got.tolist() != [False, True, False]:
+        raise SystemExit(f"g2_subgroup [3 lanes]: kernel {got.tolist()}, plain {want.tolist()}")
     log(f"edge batches == plain ({time.perf_counter() - t_edges:.1f} s): pipeline "
-        f"{[w for w, _ in edges]}; fq12_mul with a factor of one")
+        f"{[w for w, _ in edges]}; fq12_mul with a factor of one; g2_subgroup at 3 lanes")
 
     # -- 7. the BLS main path ------------------------------------------------
     def verify(sets, **kw):
@@ -598,6 +631,8 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
     for name, key in (("bls_pipeline", "pipeline_device"), ("g2_subgroup", "g2_subgroup_device"),
                       ("blinded_fold", "blinded_fold_device"), ("fq12_mul", "fq12_mul_device")):
         table[name]["launches"] = launches[key]
+    CALLS.update(zip(("bls_pipeline", "g2_subgroup", "blinded_fold", "fq12_mul"),
+                     map(calls_of, bb.KERNELS)))
     p50 = {k: statistics.median(ms for _, ms in v) for k, v in runs.items()}
     log(f"main path: 1k-set microbench cold {cold['1k'][1]:.1f} ms, runs "
         f"{[round(ms, 1) for _, ms in runs['1k']]} ms -> {1024 / p50['1k'] * 1e3:.1f} sets/s "
@@ -665,10 +700,9 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
 # The kernels that run a lane on a group of threads from tapes (csrc/bls12_381.cuh):
 # a spill in any of them fails the run.
 GROUP_KERNELS = ("k_gj_scalar_mul", "k_g1_scalar_mul", "k_g1_gather_scalar_mul", "k_miller",
-                 "k_fq12_mul_halves", "k_fq12_mul")
-BLS_KERNELS = GROUP_KERNELS + ("k_g1_add_halves", "k_g2_add_halves", "k_g2_subgroup",
-                               "k_blinded_final", "k_g1_affine", "k_g1_subgroup",
-                               "k_final_exp_hard", "k_fp_mul_chain")
+                 "k_fq12_mul_halves", "k_fq12_mul", "k_g2_subgroup", "k_final_exp_hard")
+BLS_KERNELS = GROUP_KERNELS + ("k_g1_add_halves", "k_g2_add_halves", "k_blinded_final",
+                               "k_g1_affine", "k_g1_subgroup", "k_fp_mul_chain")
 
 
 def ptxas_report(native, name: str, kernels) -> None:
@@ -716,6 +750,21 @@ def fp_mul_cycles(torch, np, dev, bls_cuda, bi, max_mhz: float) -> float:
         f"alone on the card ({per / max_mhz * 1e3:.1f} ns at {max_mhz:.0f} MHz); "
         f"== Python integers")
     return per
+
+
+def lane_cycles(stats, plan, other_levels, ms, max_mhz, fp_cycles, label) -> None:
+    """Log a group kernel's time as cycles of one lane: per tape level, and,
+    taking each product round at the Fp product's chain cycles, per
+    remaining row (the linear operations a level's busiest thread runs)."""
+    from lighthouse_tpu_torch.ops import bls_cuda
+
+    shape = bls_cuda.lane_shape(stats, plan, other_levels)
+    cycles = ms * 1e-3 * max_mhz * 1e6
+    linear_rows = shape["rows"] - shape["rounds"]
+    per_row = (cycles - shape["rounds"] * fp_cycles) / max(linear_rows, 1)
+    log(f"  {label}: {cycles:.0f} cycles a lane at {max_mhz:.0f} MHz over {shape['levels']} "
+        f"tape levels ({cycles / shape['levels']:.0f} a level), {shape['rounds']} product rounds "
+        f"and {linear_rows} other rows: at {fp_cycles:.0f} cycles a round, {per_row:.0f} a row")
 
 
 def traced(name: str, step) -> tuple:
@@ -896,7 +945,7 @@ def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> None
     launches = boundary_path(torch, np, dev, state, spec, "stress")
     for key, name in (("epoch_pass", "fused_epoch_pass"), ("shuffle_rounds", "shuffle_rounds"),
                       ("sha256_block", "sha256_block_device")):
-        table[key]["launches"] = launches[name]
+        table[key]["launches"] = CALLS[key] = launches[name]      # one launch a call
     del state
     t0 = time.perf_counter()
     state, spec = T.epoch_state(N_FULL, EPOCH_SEED, "mainnet", fill="mainnet")
@@ -1229,6 +1278,8 @@ def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> tuple:
                       ("g1_fold", "fold_device"), ("kzg_fused", "kzg_fused_device"),
                       ("miller_reduce", "miller_reduce_device")):
         table[key]["launches"] = launches[name]
+    CALLS.update(zip(("fr_to_mont", "fr_eval", "g1_fold", "kzg_fused", "miller_reduce"),
+                     map(calls_of, kzg.KERNELS)))
     p50 = statistics.median(s_ for _, s_ in runs)
     block_p50_ms = statistics.median(s_ for _, s_ in block_runs) * 1e3
     log(f"main path: {n}-blob batch cold {cold_s:.3f} s, runs {[round(s_, 3) for _, s_ in runs]} s; "
@@ -1510,9 +1561,10 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> None:
         raise SystemExit(f"kernels of the cuda-backend flood never launched: {idle}")
     # (c) BLS backend reference, the plane's device rung: row 11 in each batch
     chain_c = new_chain("reference")
-    before_c = launches()
+    before_c, calls_before = launches(), msm.gather_fold_device.calls
     verified_c, rejects_c, secs_c, stages_c = flood(chain_c)
     launches_c = {k: v - before_c[k] for k, v in launches().items()}
+    CALLS["gather_fold"] = msm.gather_fold_device.calls - calls_before
     if verified_b != FLOOD_ATTS or verified_c != FLOOD_ATTS or rejects_b or rejects_c:
         raise SystemExit(f"the flood did not verify whole: cuda {verified_b} "
                          f"(rejects {rejects_b[:5]}), reference {verified_c} "
@@ -1614,7 +1666,7 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> None:
         if f"index {bad_at} " not in str(e):
             raise SystemExit(f"the tampered ceremony's error names the wrong point: {e}")
     table["gather_fold"]["launches"] = launches_c["gather_fold_device"]
-    table["g1_subgroup"]["launches"] = load_launches
+    table["g1_subgroup"]["launches"] = CALLS["g1_subgroup"] = load_launches
     log(json.dumps({"kzg_load_s": kzg_load_s, "kzg_load_width": settings.width,
                     "kzg_load_g1_points": settings.width}))
     log(f"load_trusted_setup(dev({KZG_WIDTH}) as a ceremony, validate=True) == KzgSettings.dev; a "
@@ -1628,13 +1680,30 @@ BLOCK_SEED = 20240318
 BLOCK_CELL_BLOCKS = 3            # distinct consecutive blocks for the chain import
 BLOCK_VERIFY_RUNS = 7            # bench.py's block_verify repeats
 BLOCK_VERIFY_LIMIT_MS = 20.0     # BASELINE.json north star: full mainnet-block verify p50
+FINAL_EXP_STAGE_RUNS = 3         # block verifies per route for the final_exp stage's p50
 
 
-def _final_exp_route(on: bool) -> None:
-    os.environ["LHGPU_DEVICE_FINAL_EXP"] = "1" if on else "0"
+def _final_exp_route(on: bool | None) -> None:
+    """Force the final exponentiation's route (``LHGPU_DEVICE_FINAL_EXP``),
+    or with None leave it to the default (the device on a CUDA device)."""
+    if on is None:
+        os.environ.pop("LHGPU_DEVICE_FINAL_EXP", None)
+    else:
+        os.environ["LHGPU_DEVICE_FINAL_EXP"] = "1" if on else "0"
 
 
-def final_exp_phase(torch, np, dev, table, max_mhz, block, kzg_batch) -> None:
+def _default_route(dev) -> str:
+    from lighthouse_tpu_torch.ops import bls_backend as bb
+
+    saved = os.environ.pop("LHGPU_DEVICE_FINAL_EXP", None)
+    try:
+        return "device" if bb.device_final_exp(dev) else "native"
+    finally:
+        if saved is not None:
+            os.environ["LHGPU_DEVICE_FINAL_EXP"] = saved
+
+
+def final_exp_phase(torch, np, native, dev, table, max_mhz, block, kzg_batch) -> None:
     """Phase 14: row 9, the hard part of the final exponentiation."""
     from lighthouse_tpu_torch import testing as T
     from lighthouse_tpu_torch.crypto import bls, kzg
@@ -1649,6 +1718,14 @@ def final_exp_phase(torch, np, dev, table, max_mhz, block, kzg_batch) -> None:
     props = torch.cuda.get_device_properties(0)
     imad_per_s = props.multi_processor_count * IMAD_LANES_PER_SM * max_mhz * 1e6
     rng = np.random.default_rng(FINAL_EXP_SEED)
+    ptxas_report(native, "bls12_381", ("k_final_exp_hard",))
+    stats = bls_cuda.tape_stats()
+    k = stats["kernels"]["k_final_exp_hard"]
+    log(f"  k_final_exp_hard: groups of {k['width']} threads, {k['workspace_slots']} Fp slots a "
+        f"lane; tapes (levels, temporaries, products, rounds, positions, rows) "
+        f"{ {t: tuple(stats['tapes'][t].values()) for t in k['tapes']} }; a lane runs "
+        f"{bls_cuda.FINAL_EXP_HARD_TAPES}")
+    fp_cycles = fp_mul_cycles(torch, np, dev, bls_cuda, bi, max_mhz)
 
     def f2():
         return Fq2(int.from_bytes(rng.bytes(48), "big") % P,
@@ -1707,6 +1784,8 @@ def final_exp_phase(torch, np, dev, table, max_mhz, block, kzg_batch) -> None:
         _got, err, plain_ms = results[label]
         log(f"kernel final_exp_hard [{label}]: == plain (max err {err}); {ms:.4f} ms, plain "
             f"{plain_ms:.2f} ms, bound {bound_ms:.6f} ms ({bound_by}: {fp_muls} Fp products)")
+        lane_cycles(stats, bls_cuda.FINAL_EXP_HARD_TAPES, bls_cuda.FINAL_EXP_HARD_OTHER_LEVELS,
+                    ms, max_mhz, fp_cycles, f"final_exp_hard [{label}]")
         if n == 1:                  # the main path's shape: one product a call
             table["final_exp_hard"] = dict(
                 name="final_exp_hard", route="cuda",
@@ -1718,6 +1797,9 @@ def final_exp_phase(torch, np, dev, table, max_mhz, block, kzg_batch) -> None:
         f"to one")
 
     # the verdicts under both routes of LHGPU_DEVICE_FINAL_EXP
+    log(f"final exponentiation route with LHGPU_DEVICE_FINAL_EXP unset on {dev}: "
+        f"{_default_route(dev)} (a CUDA device takes row 9, the CPU the native library; "
+        f"0 and 1 force a route)")
     blobs, commits, prfs, settings = kzg_batch
     cases = {"block batch": (lambda: bls.verify_signature_sets(T.fresh(block), backend="cuda",
                                                                device=dev), True),
@@ -1739,7 +1821,9 @@ def final_exp_phase(torch, np, dev, table, max_mhz, block, kzg_batch) -> None:
         if on and t12.final_exp_hard_device.launches != len(cases):
             raise SystemExit(f"the device route launched row 9 "
                              f"{t12.final_exp_hard_device.launches} times, not {len(cases)}")
-    _final_exp_route(False)
+        if not on and t12.final_exp_hard_device.launches:
+            raise SystemExit("the native route launched row 9")
+    _final_exp_route(None)
     log(f"verdicts (verdict, wall ms) under LHGPU_DEVICE_FINAL_EXP=0 / 1: "
         f"{ {f'{k[0]} [{int(k[1])}]': v for k, v in verdicts.items()} }")
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
@@ -1820,14 +1904,14 @@ def block_phase(torch, np, dev, table) -> None:
         results[route] = dict(cold_ms=cold_ms, runs=runs, p50=statistics.median(runs),
                               chain=chain, roots=roots, times=times,
                               import_p50=statistics.median(t["total"] for t in times) * 1e3)
-    _final_exp_route(False)
+    _final_exp_route(None)
     counted = launches()
     peak = torch.cuda.max_memory_allocated()
     idle = [k for k, v in counted.items() if v == 0 and k not in (
         "fq12_mul_device", "fold_levels_device", "fold_to_root_device")]
     if idle:
         raise SystemExit(f"block path kernels never launched: {idle}")
-    table["final_exp_hard"]["launches"] = counted["final_exp_hard_device"]
+    table["final_exp_hard"]["launches"] = CALLS["final_exp_hard"] = counted["final_exp_hard_device"]
     log(f"launches over the block path (both routes): {counted}; max_memory_allocated {peak} "
         f"bytes")
 
@@ -1871,10 +1955,15 @@ def block_phase(torch, np, dev, table) -> None:
         f"the last post-state root == hashlib {host_root.hex()}; tampered blocks rejected "
         f"{reasons}")
 
+    final_exp_ms = {}
     for route, r in results.items():
         _final_exp_route(route == "device")
-        ledger: dict = {}
-        verify_once(ledger=ledger)
+        ledgers = []
+        for _ in range(FINAL_EXP_STAGE_RUNS):
+            ledgers.append({})
+            verify_once(ledger=ledgers[-1])
+        final_exp_ms[route] = [lg["bls"]["final_exp"] * 1e3 for lg in ledgers]
+        ledger = ledgers[0]
         bls_st = ledger.get("bls", {})
         stages = {"shuffle": ledger.get("shuffle", 0.0), "sets": ledger.get("sets", 0.0),
                   "verify": ledger.get("verify", 0.0),
@@ -1895,7 +1984,17 @@ def block_phase(torch, np, dev, table) -> None:
                         "block_import_p50_ms": r["import_p50"],
                         "block_import_ms": [t["total"] * 1e3 for t in r["times"]],
                         "block_import_stages_p50_ms": imp}))
-    _final_exp_route(False)
+    _final_exp_route(None)
+    p50 = {route: statistics.median(v) for route, v in final_exp_ms.items()}
+    below = 1 - p50["device"] / p50["native"]
+    log(json.dumps({"final_exp_default_route": _default_route(dev),
+                    "verify_final_exp_ms": final_exp_ms, "verify_final_exp_p50_ms": p50,
+                    "device_below_native": below, "device_25pct_below_native": below >= 0.25}))
+    log(f"final exponentiation route with LHGPU_DEVICE_FINAL_EXP unset on this card: "
+        f"{_default_route(dev)}; the block verify's final_exp stage on the device route is "
+        f"{100 * below:.1f}% below the native host's (p50 of {FINAL_EXP_STAGE_RUNS} runs each): "
+        f"the rule for a device default (at least 25% below) is "
+        f"{'met' if below >= 0.25 else 'not met'}")
     log(f"caches: block_verify_cold_ms is the first process_block of the run (hash-to-G2 of its "
         f"{n_sets} messages and the member keys' Montgomery words computed); the "
         f"{BLOCK_VERIFY_RUNS} runs repeat the same block (hash-to-G2 and key words cached; "
@@ -1940,7 +2039,7 @@ def block_phase(torch, np, dev, table) -> None:
                              f"{lost}")
         if route == "device" and not launched.get("final_exp_hard_device"):
             raise SystemExit("the traced import on the device route launched no row 9")
-    _final_exp_route(False)
+    _final_exp_route(None)
     chain = new_chain()
     chain.slot_clock.set_slot(int(b0.slot))
     log(f"host profile of one block import, top 5 by own time (ms): "

@@ -413,10 +413,12 @@ def kzg_fused_device(xs, ys, digits, xq, yq) -> torch.Tensor:
                     2, 2, -1)
     bls_cuda.launch("lh_fq12_mul_halves", f, 1)
     kzg_fused_device.launches += launches + 2
+    kzg_fused_device.calls += 1
     return f[:1].clone()
 
 
 kzg_fused_device.launches = 0
+kzg_fused_device.calls = 0
 
 KERNELS = (fr.fr_to_mont_device, fr.eval_device, msm.fold_device, kzg_fused_device,
            t12.miller_reduce_device)
@@ -425,6 +427,7 @@ KERNELS = (fr.fr_to_mont_device, fr.eval_device, msm.fold_device, kzg_fused_devi
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    msm.fold_device.calls = kzg_fused_device.calls = t12.miller_reduce_device.calls = 0
 
 
 def fused_lanes(lhs_points, lhs_scalars, pis, r_pows, device):

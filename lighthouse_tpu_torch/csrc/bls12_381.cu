@@ -6,7 +6,8 @@
 //   lh_gj_scalar_mul + lh_g1/g2_add_halves + lh_miller + lh_fq12_mul_halves
 //       -> ops/bls_backend.py:124 _pipeline_fused (wrapper
 //          bls_backend.pipeline_device)
-//   lh_g2_subgroup      -> ops/bls_backend.py:175 _g2_subgroup_kernel
+//   lh_g2_subgroup      -> ops/bls_backend.py:175 _g2_subgroup_kernel (wrapper
+//                          bls_backend.g2_subgroup_device): group lanes of 16
 //   lh_g1_add_halves + lh_blinded_final
 //                       -> ops/msm.py:143 _blinded_fold
 //   lh_fq12_mul         -> ops/dispatch_pipeline.py:162 _fq12_mul_pair
@@ -26,7 +27,7 @@
 //   lh_final_exp_hard   -> ops/bls_backend.py:395 _final_exp_hard_jit over
 //                          ops/bls12_381.py:702 final_exp_hard_device (wrapper
 //                          bls12_381.final_exp_hard_device): the whole x-ladder
-//                          in one launch, one thread a lane
+//                          in one launch, a warp a lane
 //
 // Bound: 32-bit integer multiply-adds.  Every Fp product is a 12-word CIOS
 // Montgomery multiply (2*12^2 + 12 multiply-adds); the data moved is a few
@@ -37,23 +38,25 @@
 // products that remain).
 //
 // Design.  A lane's products mostly do not depend on each other, and the
-// lanes are few (the block batch has 132 Miller lanes, the KZG check 2), so
-// one thread a lane leaves the card idle.  The scalar multiplications, the
-// Miller loop and the Fq12 product tree give each lane a group of threads
-// (a warp, or 4 threads of one for the G1 scalar multiplication): the
-// lane's state (window table and accumulator, or f, T and the Miller
-// constants) lives in dynamic shared memory, and each step runs from a tape
-// of levels, thread t of the group taking positions t, t + width, ... of a
-// level (csrc/bls12_381.cuh).  A block is one warp; a Miller or joint
-// scalar-multiplication lane is one block, so that 132 lanes reach 132 SMs.
-// The tapes are built on the host (csrc/bls_tapes.cc, the code the CPU
-// tests run), copied to each device before its first group launch, and
-// staged by each block in shared memory after its lanes' workspaces.  The
-// psi check, the segment, G2 and affine steps and the final exponentiation
-// run one thread a lane, with the same register-held Fp product; the trees
-// launch once per level, each thread or group combining rows i and
-// i + half in place.  Each launcher returns cudaGetLastError() of its
-// launch, or the error of the tapes' copy.
+// lanes are few (the block batch has 132 Miller lanes, the KZG check 2, the
+// final exponentiation 1), so one thread a lane leaves the card idle.  The
+// scalar multiplications, the Miller loop, the Fq12 product tree, the psi
+// check and the final exponentiation's hard part give each lane a group of
+// threads (a warp; 16 threads for the psi check, two lanes a warp; 4
+// threads for the G1 scalar multiplication): the lane's state (window
+// table and accumulator; f, T and the Miller constants; T and the base;
+// the ladder's Fq12 values) lives in dynamic shared memory, and each step
+// runs from a tape of levels, thread t of the group taking positions t,
+// t + width, ... of a level (csrc/bls12_381.cuh).  A block is one warp; a
+// Miller, joint scalar-multiplication or final-exponentiation lane is one
+// block, so that 132 lanes reach 132 SMs.  The tapes are built on the host
+// (csrc/bls_tapes.cc, the code the CPU tests run), copied to each device
+// before its first group launch, and staged by each block in shared memory
+// after its lanes' workspaces.  The G1 membership check and the segment,
+// G2 and affine steps run one thread a lane, with the same register-held
+// Fp product; the trees launch once per level, each thread or group
+// combining rows i and i + half in place.  Each launcher returns
+// cudaGetLastError() of its launch, or the error of the tapes' copy.
 
 #include <cuda_runtime.h>
 
@@ -206,9 +209,12 @@ __global__ void k_g2_add_halves(long half, u32* X, u32* Y, u32* Z) {
     if (i < half) lane_add_halves<Fp2>(i, half, X, Y, Z);
 }
 
-__global__ void k_g2_subgroup(long n, const u32* xq, const u32* yq, uint8_t* out) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) lane_g2_subgroup(i, xq, yq, out);
+__global__ void k_g2_subgroup(long n, const u32* xq, const u32* yq, uint8_t* out, Span sp) {
+    const TapeView tv = stage(sp, lh_smem + (32 / PSI_W) * PSI_WS);
+    int lane;
+    Grp g = group<PSI_W>(lane);
+    long i = (long)blockIdx.x * (32 / PSI_W) + lane;
+    if (i < n) lane_g2_subgroup<PSI_W>(g, tv, lh_smem + lane * PSI_WS, i, xq, yq, out);
 }
 
 __global__ void k_blinded_final(long n, const u32* X, const u32* Y, const u32* Z,
@@ -217,25 +223,31 @@ __global__ void k_blinded_final(long n, const u32* X, const u32* Y, const u32* Z
     if (g < n) lane_blinded_final(g, X, Y, Z, ux, uy, xa, ya, inf);
 }
 
-__global__ void k_final_exp_hard(long n, const u32* in, u32* out) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) lane_final_exp_hard(i, in, out);
+__global__ void k_final_exp_hard(long n, const u32* in, u32* out, Span sp) {
+    const TapeView tv = stage(sp, lh_smem + (32 / FE_W) * FE_WS);
+    int lane;
+    Grp g = group<FE_W>(lane);
+    long i = (long)blockIdx.x * (32 / FE_W) + lane;
+    if (i < n) lane_final_exp_hard<FE_W>(g, tv, lh_smem + lane * FE_WS, i, in, out);
 }
 
 inline cudaStream_t S(void* s) { return reinterpret_cast<cudaStream_t>(s); }
 
 // the group kernels' lanes' workspaces in a warp-sized block, and the tapes
 // each stages after them
-enum GroupKernel { GK_GJ, GK_G1, GK_MILLER, GK_FQ12 };
-constexpr size_t kWorkspace[4] = {
-    (32 / GJ_W) * GJ_WS * sizeof(Fp), (32 / G1_W) * G1_WS * sizeof(Fp),
-    (32 / MILLER_W) * MILLER_WS * sizeof(Fp), (32 / FQ12_W) * FQ12_WS * sizeof(Fp)};
+enum GroupKernel { GK_GJ, GK_G1, GK_MILLER, GK_FQ12, GK_FE, GK_PSI, N_GK };
+constexpr size_t kWorkspace[N_GK] = {
+    (32 / GJ_W) * GJ_WS * sizeof(Fp),         (32 / G1_W) * G1_WS * sizeof(Fp),
+    (32 / MILLER_W) * MILLER_WS * sizeof(Fp), (32 / FQ12_W) * FQ12_WS * sizeof(Fp),
+    (32 / FE_W) * FE_WS * sizeof(Fp),         (32 / PSI_W) * PSI_WS * sizeof(Fp)};
 // each kernel's tapes: a range of TapeId
-constexpr int kTapesOf[4][2] = {{TAPE_G1_ADD, TAPE_G1G2_ADD},
-                                {TAPE_G1_DBL, TAPE_G1_ADD},
-                                {TAPE_MILLER_SETUP, TAPE_MILLER_ADD},
-                                {TAPE_FQ12_MUL, TAPE_FQ12_MUL}};
-Span spans[4];
+constexpr int kTapesOf[N_GK][2] = {{TAPE_G1_ADD, TAPE_G1G2_ADD},
+                                   {TAPE_G1_DBL, TAPE_G1_ADD},
+                                   {TAPE_MILLER_SETUP, TAPE_MILLER_ADD},
+                                   {TAPE_FQ12_MUL, TAPE_FQ12_MUL},
+                                   {TAPE_FQ12_MUL, TAPE_FROB3},
+                                   {TAPE_PSI_DBL, TAPE_PSI_TAIL}};
+Span spans[N_GK];
 
 inline size_t smem_of(int k) {
     size_t tapes = spans[k].nops * sizeof(Op) + (spans[k].nlv + 1) * sizeof(uint16_t);
@@ -268,7 +280,9 @@ int ensure_tapes(cudaStream_t s) {
         (e = allow_smem(k_g1_gather_scalar_mul, smem_of(GK_G1))) != cudaSuccess ||
         (e = allow_smem(k_miller, smem_of(GK_MILLER))) != cudaSuccess ||
         (e = allow_smem(k_fq12_mul_halves, smem_of(GK_FQ12))) != cudaSuccess ||
-        (e = allow_smem(k_fq12_mul, smem_of(GK_FQ12))) != cudaSuccess)
+        (e = allow_smem(k_fq12_mul, smem_of(GK_FQ12))) != cudaSuccess ||
+        (e = allow_smem(k_final_exp_hard, smem_of(GK_FE))) != cudaSuccess ||
+        (e = allow_smem(k_g2_subgroup, smem_of(GK_PSI))) != cudaSuccess)
         return (int)e;
     tapes_on[dev] = true;
     return 0;
@@ -287,7 +301,7 @@ int lh_set_tapes(const void* tapes, long long size) {
     if (!host_tapes_copy) host_tapes_copy = new Tapes;
     std::memcpy(host_tapes_copy, tapes, sizeof(Tapes));
     const Tapes& t = *host_tapes_copy;
-    for (int k = 0; k < 4; k++) {
+    for (int k = 0; k < N_GK; k++) {
         const TapeInfo &a = t.info[kTapesOf[k][0]], &b = t.info[kTapesOf[k][1]];
         const int lv0 = a.first_level, lv1 = b.first_level + b.n_levels;
         const int op0 = t.level_start[lv0];
@@ -351,8 +365,11 @@ int lh_fq12_mul(const u32* a, const u32* b, u32* out, long long n, void* stream)
     return (int)cudaGetLastError();
 }
 
+// affine G2 lanes xq, yq [n, 2, 12] -> psi membership verdict out [n]
 int lh_g2_subgroup(const u32* xq, const u32* yq, uint8_t* out, long long n, void* stream) {
-    k_g2_subgroup<<<blocks(n), kBlock, 0, S(stream)>>>(n, xq, yq, out);
+    if (int rc = ensure_tapes(S(stream))) return rc;
+    k_g2_subgroup<<<(unsigned)((n + 32 / PSI_W - 1) / (32 / PSI_W)), 32, smem_of(GK_PSI),
+                    S(stream)>>>(n, xq, yq, out, spans[GK_PSI]);
     return (int)cudaGetLastError();
 }
 
@@ -388,9 +405,11 @@ int lh_g1_subgroup(const u32* xp, const u32* yp, uint8_t* out, long long n, void
 }
 
 // cyclotomic Fq12 rows [n, 12, 12] -> (m^((p^4 - p^2 + 1)/r))^3 rows [n, 12, 12];
-// 32-thread blocks: the lanes are few and each is one long chain
+// a warp a lane, one lane a block
 int lh_final_exp_hard(const u32* in, u32* out, long long n, void* stream) {
-    k_final_exp_hard<<<(unsigned)((n + 31) / 32), 32, 0, S(stream)>>>(n, in, out);
+    if (int rc = ensure_tapes(S(stream))) return rc;
+    k_final_exp_hard<<<(unsigned)((n + 32 / FE_W - 1) / (32 / FE_W)), 32, smem_of(GK_FE),
+                       S(stream)>>>(n, in, out, spans[GK_FE]);
     return (int)cudaGetLastError();
 }
 

@@ -17,13 +17,15 @@
 //
 // Two ways to run a lane:
 //
-// - One thread a lane (the psi and G1 membership checks, the segment and
-//   G2 trees, the affine conversion, the final exponentiation): the tower
-//   and curve routines below on values in the thread's registers and stack.
-//   Products from Fp2 upward, and the G1 curve routines' Fp product, are
-//   called rather than inlined, to bound the code size and nvcc's time.
+// - One thread a lane (the G1 membership check, the segment and G2 trees,
+//   the affine conversion): the tower and curve routines below on values in
+//   the thread's registers and stack.  Products from Fp2 upward, and the G1
+//   curve routines' Fp product, are called rather than inlined, to bound the
+//   code size and nvcc's time.  The one-thread psi check and final
+//   exponentiation stay here as the host oracles of their group lanes.
 // - A group of threads a lane (the scalar multiplications, the Miller loop,
-//   the Fq12 product tree): the lane's state lives in shared memory, and
+//   the Fq12 product tree, the psi check, the final exponentiation's hard
+//   part): the lane's state lives in shared memory, and
 //   each step of its formula sequence runs from a tape.  The tower and curve
 //   routines are templates over the base field, so the same source, run
 //   once on the host on traced values (TV), records a step as Fp
@@ -1024,6 +1026,9 @@ enum TapeId {
     TAPE_G1_DBL, TAPE_G1_ADD, TAPE_G2_ADD,                 // in0 (+ in1) -> out
     TAPE_G1G2_DBL, TAPE_G1G2_ADD,                          // G1 and G2 track together
     TAPE_FQ12_MUL,                                         // in0 * in1 -> out
+    TAPE_CYC_SQR,                                          // in0 -> out
+    TAPE_FROB1, TAPE_FROB2, TAPE_FROB3,                    // final exp lane, absolute slots
+    TAPE_PSI_DBL, TAPE_PSI_ADD, TAPE_PSI_TAIL,             // psi lane, absolute slots
     N_TAPES
 };
 
@@ -1051,11 +1056,18 @@ struct Tapes {
 // one to an SM.  The G1 scalar multiplication's levels hold at most 4
 // products: 4 threads a lane, 8 lanes a warp, so that a fold of thousands of
 // lanes keeps about one warp on each of the card's schedulers and few
-// threads idle.
+// threads idle.  The final exponentiation's cyclotomic square holds its 18
+// products in one level (and runs 317 times a lane): a warp a lane, one
+// round a square.  The psi check's levels hold at most 9 products (a G2
+// doubling's first two, 3 Fp2 products each; the mixed add's widest is
+// also 9): 16 threads a lane take each in one round, two lanes a warp, so
+// the block batch's 256 lanes fill 128 warps on 128 SMs.
 #define MILLER_W 32
 #define GJ_W 32
 #define FQ12_W 32
 #define G1_W 4
+#define FE_W 32
+#define PSI_W 16
 
 // Workspace layouts (Fp slots).  Miller: f, T = (X, Y, Z), the lane's
 // inputs and the setup's constants, then the temporaries.
@@ -1072,6 +1084,15 @@ enum {
 #define SM_TMP(g2) (17 * SM_ENTRY(g2))
 // Fq12 product: x, y, then the temporaries
 #define FQ_TMP 24
+// Final exponentiation: the Frobenius twists gamma_1..5 (Fp2), the lane's
+// Fq12 values m, t1, g3, g2, g1, g0 and a scratch a, then the temporaries
+enum {
+    FE_GAMMA = 0, FE_M = 10, FE_T1 = 22, FE_G3 = 34, FE_G2 = 46, FE_G1 = 58, FE_G0 = 70,
+    FE_A = 82, FE_TMP = 94
+};
+// psi check: the affine base x, y (Fp2), the constants c (of c_x = c u)
+// and c_y, T = (X, Y, Z), the residues d1, d2, then the temporaries
+enum { PS_X = 0, PS_Y = 2, PS_CX = 4, PS_CY = 5, PS_T = 7, PS_D = 13, PS_TMP = 17 };
 
 // most temporaries a step may take, per lane layout (the builder fails
 // past them)
@@ -1079,10 +1100,14 @@ enum {
 #define GJ_TEMPS 48
 #define G1_TEMPS 16
 #define FQ12_TEMPS 144
+#define FE_TEMPS FQ12_TEMPS      // the lane runs the Fq12 product's tape too
+#define PSI_TEMPS 48
 #define MILLER_WS (MS_TMP + MILLER_TEMPS)
 #define GJ_WS (SM_TMP(1) + GJ_TEMPS)
 #define G1_WS (SM_TMP(0) + G1_TEMPS)
 #define FQ12_WS (FQ_TMP + FQ12_TEMPS)
+#define FE_WS (FE_TMP + FE_TEMPS)
+#define PSI_WS (PS_TMP + PSI_TEMPS)
 
 // ---- global memory rows -----------------------------------------------------
 
@@ -1352,24 +1377,13 @@ __device__ __forceinline__ void lane_fq12_mul(const Grp& g, const TapeView& T, F
     par(g, W, 144, [&](int k) { out[i * 144 + k] = w[res * 12 + k]; });
 }
 
-// ---- one-thread lane routines (one thread a lane in csrc/bls12_381.cu) -------
+// ---- the psi check -----------------------------------------------------------------
 
-// One double-and-add step of the psi check (ec._dbl_add_step): 2T, then the
-// mixed add of the affine base (xb, yb) when bit is set; inf is T's flag.
-// The doubling is skipped while T is infinity and the add on a clear bit,
-// where the JAX program computes and discards them (same values).
+// The mixed add of the affine base (xb, yb) to T, the add of the psi and G1
+// membership scans (ec._dbl_add_step).  INCOMPLETE at H == 0, where T is
+// +-B: Z comes out 0, and the doublings keep it 0 (the fail-closed chord).
 template <class F>
-__device__ __noinline__ void dbl_add_step(Jac<F>& T, bool& inf, const F& xb, const F& yb,
-                                          int bit) {
-    if (!inf) jac_double(T, T);
-    if (!bit) return;
-    if (inf) {
-        T.X = xb;
-        T.Y = yb;
-        f_one(T.Z);
-        inf = false;
-        return;
-    }
+__device__ __forceinline__ void jac_madd(Jac<F>& T, const F& xb, const F& yb) {
     F zz, u2, zzz, H, s2, hh, rv, zph, rr, j, v, zph2, J, V, X3a, Y3a, Z3a, tmp;
     f_mul(zz, T.Z, T.Z);
     f_mul(u2, xb, zz);
@@ -1401,20 +1415,51 @@ __device__ __noinline__ void dbl_add_step(Jac<F>& T, bool& inf, const F& xb, con
     T.Z = Z3a;
 }
 
-// rows i and i + half of a G1 (or G2) lane array -> row i (one tree level)
-template <class F> __device__ __forceinline__ void lane_add_halves(long i, long half, u32* X,
-                                                                   u32* Y, u32* Z) {
-    Jac<F> p, q;
-    ld(p, X, Y, Z, i);
-    ld(q, X, Y, Z, i + half);
-    jac_add_full(p, p, q, -1, -1);
-    st(X, Y, Z, i, p);
+// One double-and-add step of the psi check (ec._dbl_add_step): 2T, then the
+// mixed add of the affine base (xb, yb) when bit is set; inf is T's flag.
+// The doubling is skipped while T is infinity and the add on a clear bit,
+// where the JAX program computes and discards them (same values).
+template <class F>
+__device__ __noinline__ void dbl_add_step(Jac<F>& T, bool& inf, const F& xb, const F& yb,
+                                          int bit) {
+    if (!inf) jac_double(T, T);
+    if (!bit) return;
+    if (inf) {
+        T.X = xb;
+        T.Y = yb;
+        f_one(T.Z);
+        inf = false;
+        return;
+    }
+    jac_madd(T, xb, yb);
 }
 
-// psi membership of affine G2 lane i (ec.g2_subgroup_verdict_batch)
+// The psi comparison of affine lane (x, y) with S = T = [|x|](x, y):
+// d1 = x_psi Z^2 - X and d2 = y_psi Z^3 + Y, where psi(x, y) =
+// (conj(x) c_x, conj(y) c_y) and c_x = c u, so x_psi = (x1 c, x0 c)
+template <class B>
+__device__ __forceinline__ void psi_tail(Fp2T<B>& d1, Fp2T<B>& d2, const Fp2T<B>& x,
+                                         const Fp2T<B>& y, const Jac<Fp2T<B> >& T, const B& cx,
+                                         const Fp2T<B>& cy) {
+    Fp2T<B> px, py, z2, z3, xz, yz;
+    fp_mul(px.c[0], x.c[1], cx);
+    fp_mul(px.c[1], x.c[0], cx);
+    fp2_conj(py, y);
+    fp2_mul(py, py, cy);
+    fp2_mul(z2, T.Z, T.Z);
+    fp2_mul(xz, px, z2);
+    fp2_mul(z3, z2, T.Z);
+    fp2_mul(yz, py, z3);
+    fp2_sub(d1, xz, T.X);
+    fp2_add(d2, yz, T.Y);
+}
+
+// psi membership of affine G2 lane i (ec.g2_subgroup_verdict_batch), one
+// thread: the host oracle of the group lane below
 __device__ __forceinline__ void lane_g2_subgroup(long i, const u32* xq, const u32* yq,
                                                  uint8_t* out) {
-    Fp2 x, y, px, py, z2, z3, xz, yz, d1, d2, cx, cy;
+    Fp2 x, y, cy, d1, d2;
+    Fp cx;
     ld(x, xq, i);
     ld(y, yq, i);
     Jac<Fp2> T;
@@ -1424,22 +1469,65 @@ __device__ __forceinline__ void lane_g2_subgroup(long i, const u32* xq, const u3
     for (int b = 63; b >= 0; b--) dbl_add_step(T, inf, x, y, (int)((BLS_X_ABS >> b) & 1));
     if (inf) jac_zero(T);
     for (int k = 0; k < 12; k++) {
-        cx.c[0].w[k] = PSI_CX_W[0][k];
-        cx.c[1].w[k] = PSI_CX_W[1][k];
+        cx.w[k] = PSI_CX_W[1][k];
         cy.c[0].w[k] = PSI_CY_W[0][k];
         cy.c[1].w[k] = PSI_CY_W[1][k];
     }
-    fp_mul(px.c[0], x.c[1], cx.c[1]);      // conj(x) * cx with cx = c u
-    fp_mul(px.c[1], x.c[0], cx.c[1]);
-    fp2_conj(py, y);
-    fp2_mul(py, py, cy);
-    fp2_mul(z2, T.Z, T.Z);
-    fp2_mul(xz, px, z2);
-    fp2_mul(z3, z2, T.Z);
-    fp2_mul(yz, py, z3);
-    fp2_sub(d1, xz, T.X);
-    fp2_add(d2, yz, T.Y);
+    psi_tail(d1, d2, x, y, T, cx, cy);
     out[i] = fp2_is_zero(d1) && fp2_is_zero(d2) && !fp2_is_zero(T.Z);
+}
+
+// The same check as a group lane: x, y, the constants and T in the lane's
+// workspace (PS_*), the doubling, the mixed add and the tail from tapes.
+// The branches are the one-thread scan's, uniform across the lanes (they
+// read only |x|'s bits and T's flag): no doubling while T is infinity, the
+// first set bit loads the base, a clear bit skips the add.
+template <int W>
+__device__ __forceinline__ void lane_g2_subgroup(const Grp& g, const TapeView& T, Fp* ws, long i,
+                                                 const u32* xq, const u32* yq, uint8_t* out) {
+    u32* w = ws[0].w;
+    par(g, W, PS_T * 12, [&](int k) {
+        const int s = k / 12, q = k % 12;
+        u32 v;
+        if (s < PS_Y) v = xq[i * 24 + s * 12 + q];
+        else if (s < PS_CX) v = yq[i * 24 + (s - PS_Y) * 12 + q];
+        else if (s == PS_CX) v = PSI_CX_W[1][q];
+        else v = PSI_CY_W[s - PS_CY][q];
+        w[k] = v;
+    });
+    bool inf = true;
+    for (int b = 63; b >= 0; b--) {
+        if (!inf) run_tape(g, T, TAPE_PSI_DBL, ws, 0, 0, 0, PS_TMP);
+        if (!((BLS_X_ABS >> b) & 1)) continue;
+        if (inf) {      // T = (x, y, 1)
+            par(g, W, 72, [&](int k) {
+                const int s = k / 12;
+                w[PS_T * 12 + k] = s < 4 ? w[k] : s == 4 ? ONE_W[k % 12] : 0u;
+            });
+            inf = false;
+        } else {
+            run_tape(g, T, TAPE_PSI_ADD, ws, 0, 0, 0, PS_TMP);
+        }
+    }
+    if (inf) par(g, W, 72, [&](int k) { w[PS_T * 12 + k] = 0u; });
+    run_tape(g, T, TAPE_PSI_TAIL, ws, 0, 0, 0, PS_TMP);
+    par(g, 1, 1, [&](int) {
+        const bool d0 = fp_is_zero(ws[PS_D]) && fp_is_zero(ws[PS_D + 1]) &&
+                        fp_is_zero(ws[PS_D + 2]) && fp_is_zero(ws[PS_D + 3]);
+        out[i] = d0 && !(fp_is_zero(ws[PS_T + 4]) && fp_is_zero(ws[PS_T + 5]));
+    });
+}
+
+// ---- one-thread lane routines (one thread a lane in csrc/bls12_381.cu) -------
+
+// rows i and i + half of a G1 (or G2) lane array -> row i (one tree level)
+template <class F> __device__ __forceinline__ void lane_add_halves(long i, long half, u32* X,
+                                                                   u32* Y, u32* Z) {
+    Jac<F> p, q;
+    ld(p, X, Y, Z, i);
+    ld(q, X, Y, Z, i + half);
+    jac_add_full(p, p, q, -1, -1);
+    st(X, Y, Z, i, p);
 }
 
 // a^(p-2) (0 -> 0), square-and-multiply over the exponent's bits
@@ -1549,32 +1637,41 @@ __constant__ u32 FROB_G_W[5][2][12] = {
      {0xf242c66cu, 0x3726c30au, 0xd1b6fe70u, 0x7c2ac1aau, 0xba4b14a2u, 0xa04007fbu,
       0x66341429u, 0xef517c32u, 0x4ed2226bu, 0x0095ba65u, 0xcc86f7ddu, 0x02e370ecu}}};
 
-// (a + bu)^2 = (a + b)(a - b) + 2ab u: 2 Fp products
-__device__ __noinline__ void fp2_sqr(Fp2& r, const Fp2& x) {
-    Fp s, d, ab;
+// (a + bu)^2 = (a + b)(a - b) + (2a)b u: 2 Fp products, and no linear
+// operation after them
+template <class B> __device__ __noinline__ void fp2_sqr(Fp2T<B>& r, const Fp2T<B>& x) {
+    B s, d, a2, re;
     fp_add(s, x.c[0], x.c[1]);
     fp_sub(d, x.c[0], x.c[1]);
-    fp_mul(ab, x.c[0], x.c[1]);
-    fp_mul(r.c[0], s, d);
-    fp_add(r.c[1], ab, ab);
+    fp_add(a2, x.c[0], x.c[0]);
+    fp_mul(re, s, d);
+    fp_mul(r.c[1], a2, x.c[1]);
+    r.c[0] = re;
 }
 
-// 3a - 2g (sub) or 3a + 2g (add): the Granger-Scott output combination
-__device__ __forceinline__ void gs_out(Fp2& z, const Fp2& a, const Fp2& g, bool add) {
-    Fp2 t;
-    if (add) fp2_add(t, a, g);
-    else fp2_sub(t, a, g);
-    fp2_add(t, t, t);
-    fp2_add(z, t, a);
+// 3a - 2g (sub) or 3a + 2g (add) from g2 = 2g: (a + a) + (a -+ g2), two
+// linear levels after a: the Granger-Scott output combination
+template <class B>
+__device__ __forceinline__ void gs_out(Fp2T<B>& z, const Fp2T<B>& a, const Fp2T<B>& g2,
+                                       bool add) {
+    Fp2T<B> t, a2;
+    if (add) fp2_add(t, a, g2);
+    else fp2_sub(t, a, g2);
+    fp2_add(a2, a, a);
+    fp2_add(z, a2, t);
 }
 
 // Granger-Scott squaring of a cyclotomic element (JAX fp12_cyclotomic_sqr,
 // ops/bls12_381.py:649): coefficients x = (g0, g1, g2) + (g3, g4, g5) w,
 // 9 Fp2 squarings.  Wrong for an element outside the cyclotomic subgroup.
-__device__ __noinline__ void fp12_cyclotomic_sqr(Fp12& r, const Fp12& x) {
-    const Fp2 &g0 = x.c[0].c[0], &g1 = x.c[0].c[1], &g2 = x.c[0].c[2];
-    const Fp2 &g3 = x.c[1].c[0], &g4 = x.c[1].c[1], &g5 = x.c[1].c[2];
-    Fp2 t0, t1, t2, t3, t4, t5, t6, t7, t8, s, a0, a2, a4;
+// The doubled inputs are taken before the squarings, so the deepest
+// output is five linear operations after its product (it is a field
+// element: any order of the same sums gives the same words).
+template <class B> __device__ __noinline__ void fp12_cyclotomic_sqr(Fp12T<B>& r, const Fp12T<B>& x) {
+    const Fp2T<B> &g0 = x.c[0].c[0], &g1 = x.c[0].c[1], &g2 = x.c[0].c[2];
+    const Fp2T<B> &g3 = x.c[1].c[0], &g4 = x.c[1].c[1], &g5 = x.c[1].c[2];
+    Fp2T<B> t0, t1, t2, t3, t4, t5, t6, t7, t8, s, a0, a2, a4, d[6];
+    for (int k = 0; k < 6; k++) fp2_add(d[k], x.c[k / 3].c[k % 3], x.c[k / 3].c[k % 3]);
     fp2_sqr(t0, g4);
     fp2_sqr(t1, g0);
     fp2_add(s, g4, g0);
@@ -1600,40 +1697,45 @@ __device__ __noinline__ void fp12_cyclotomic_sqr(Fp12& r, const Fp12& x) {
     fp2_add(a2, a2, t3);
     fp2_mul_xi(a4, t4);
     fp2_add(a4, a4, t5);
-    Fp12 z;
-    gs_out(z.c[0].c[0], a0, g0, false);
-    gs_out(z.c[0].c[1], a2, g1, false);
-    gs_out(z.c[0].c[2], a4, g2, false);
-    gs_out(z.c[1].c[0], t8, g3, true);
-    gs_out(z.c[1].c[1], t6, g4, true);
-    gs_out(z.c[1].c[2], t7, g5, true);
+    Fp12T<B> z;
+    gs_out(z.c[0].c[0], a0, d[0], false);
+    gs_out(z.c[0].c[1], a2, d[1], false);
+    gs_out(z.c[0].c[2], a4, d[2], false);
+    gs_out(z.c[1].c[0], t8, d[3], true);
+    gs_out(z.c[1].c[1], t6, d[4], true);
+    gs_out(z.c[1].c[2], t7, d[5], true);
     r = z;
 }
 
-__device__ __forceinline__ void frob_gamma(Fp2& g, int k) {
-    for (int w = 0; w < 12; w++) {
-        g.c[0].w[w] = FROB_G_W[k - 1][0][w];
-        g.c[1].w[w] = FROB_G_W[k - 1][1][w];
-    }
-}
-
 // f^(p^n) (JAX fp12_frobenius, ops/bls12_381.py:631): n rounds of
-// coefficient conjugation and the gamma twists, 5 Fp2 products a round
-__device__ __noinline__ void fp12_frobenius(Fp12& r, const Fp12& f, int n) {
-    Fp12 x = f;
-    Fp2 g, c;
+// coefficient conjugation and the twists gam[k - 1] = gamma_k, 5 Fp2
+// products a round
+template <class B>
+__device__ __noinline__ void fp12_frobenius(Fp12T<B>& r, const Fp12T<B>& f, int n,
+                                            const Fp2T<B>* gam) {
+    Fp12T<B> x = f;
+    Fp2T<B> c;
 #pragma unroll 1
     for (int i = 0; i < n; i++) {
         fp2_conj(x.c[0].c[0], x.c[0].c[0]);
         const int ks[5] = {2, 4, 1, 3, 5};      // a1, a2, b0, b1, b2
         for (int j = 0; j < 5; j++) {
-            Fp2& e = x.c[(j + 1) / 3].c[(j + 1) % 3];
-            frob_gamma(g, ks[j]);
+            Fp2T<B>& e = x.c[(j + 1) / 3].c[(j + 1) % 3];
             fp2_conj(c, e);
-            fp2_mul(e, c, g);
+            fp2_mul(e, c, gam[ks[j] - 1]);
         }
     }
     r = x;
+}
+
+__device__ __noinline__ void fp12_frobenius(Fp12& r, const Fp12& f, int n) {
+    Fp2 gam[5];
+    for (int k = 0; k < 5; k++)
+        for (int w = 0; w < 12; w++) {
+            gam[k].c[0].w[w] = FROB_G_W[k][0][w];
+            gam[k].c[1].w[w] = FROB_G_W[k][1][w];
+        }
+    fp12_frobenius(r, f, n, gam);
 }
 
 // f^x for the negative curve parameter x, f cyclotomic (JAX _cyc_exp_x,
@@ -1651,7 +1753,8 @@ __device__ __noinline__ void cyc_exp_x(Fp12& r, const Fp12& f) {
     fp12_conj(r, out);
 }
 
-// lane i of Fq12 rows [N, 12, 12]: out = (m^((p^4 - p^2 + 1)/r))^3
+// lane i of Fq12 rows [N, 12, 12]: out = (m^((p^4 - p^2 + 1)/r))^3, one
+// thread: the host oracle of the group lane below
 __device__ __forceinline__ void lane_final_exp_hard(long i, const u32* in, u32* out) {
     Fp12 m, t1, a, g3, g2, g1, g0;
     ld(m, in, i);
@@ -1676,6 +1779,83 @@ __device__ __forceinline__ void lane_final_exp_hard(long i, const u32* in, u32* 
     fp12_frobenius(a, g3, 3);
     fp12_mul(g0, g0, a);
     st(out, i, g0);
+}
+
+// The same hard part as a group lane: the steps of lane_final_exp_hard over
+// the lane's Fq12 slots (FE_*), each one of
+//   FE_LADDER  dst = src^x: dst = src, per bit of |x| after the top one a
+//              cyclotomic square of dst and, on a set bit, dst = dst * src;
+//              then dst = conj(dst)
+//   FE_SQR     dst = src^2 (cyclotomic)     FE_MUL   dst = dst * src
+//   FE_CONJ    dst = conj(src)              FE_FROB  a = g_n^(p^n), n = 1..3
+enum FeKind : uint8_t { FE_LADDER, FE_SQR, FE_MUL, FE_CONJ, FE_FROB };
+struct FeStep {
+    uint8_t kind, src, dst;
+};
+#define FE_STEPS 20
+__constant__ FeStep FE_PROG[FE_STEPS] = {
+    {FE_LADDER, FE_M, FE_T1},  {FE_LADDER, FE_T1, FE_G3}, {FE_SQR, FE_T1, FE_A},
+    {FE_CONJ, FE_A, FE_A},     {FE_MUL, FE_A, FE_G3},     {FE_MUL, FE_M, FE_G3},
+    {FE_LADDER, FE_G3, FE_G2}, {FE_LADDER, FE_G2, FE_G1}, {FE_CONJ, FE_G3, FE_A},
+    {FE_MUL, FE_A, FE_G1},     {FE_LADDER, FE_G1, FE_G0}, {FE_SQR, FE_M, FE_A},
+    {FE_MUL, FE_A, FE_G0},     {FE_MUL, FE_M, FE_G0},     {FE_FROB, FE_G1, FE_A},
+    {FE_MUL, FE_A, FE_G0},     {FE_FROB, FE_G2, FE_A},    {FE_MUL, FE_A, FE_G0},
+    {FE_FROB, FE_G3, FE_A},    {FE_MUL, FE_A, FE_G0}};
+
+// Lane i: the twists and m into the workspace, then the steps, each one
+// tape run (the Frobenius tapes read g1, g2, g3 and write a at fixed slots)
+// or one copy level (a conjugation negates the w half), from one call site
+// of each so that the lane's code stays small; g0 out.
+template <int W>
+__device__ __forceinline__ void lane_final_exp_hard(const Grp& g, const TapeView& T, Fp* ws,
+                                                    long i, const u32* in, u32* out) {
+    u32* w = ws[0].w;
+    par(g, W, (FE_M + 12) * 12, [&](int k) {
+        const int s = k / 12;
+        w[k] = s < FE_M ? FROB_G_W[s / 2][s % 2][k % 12] : in[i * 144 + k - FE_M * 12];
+    });
+    int st = 0, b = 63;     // the step, and a ladder's bit (63: not begun)
+    bool mul = false;       // a ladder's product of the bit b is next
+    while (st < FE_STEPS) {
+        const FeStep s = FE_PROG[st];
+        int tape = -1, in0 = s.src, in1 = s.src, neg = 0;
+        if (s.kind == FE_LADDER) {
+            if (b == 63) {                      // dst = src
+                b = 62;
+            } else if (mul) {
+                tape = TAPE_FQ12_MUL;
+                in0 = s.dst;
+                mul = false;
+                b--;
+            } else if (b >= 0) {
+                tape = TAPE_CYC_SQR;
+                in0 = s.dst;
+                if ((BLS_X_ABS >> b) & 1) mul = true;
+                else b--;
+            } else {                            // dst = conj(dst)
+                in0 = s.dst;
+                neg = 1;
+                b = 63;
+                st++;
+            }
+        } else {
+            tape = s.kind == FE_SQR ? TAPE_CYC_SQR : s.kind == FE_MUL ? TAPE_FQ12_MUL : -1;
+            if (s.kind == FE_MUL) in0 = s.dst;
+            if (s.kind == FE_FROB) tape = TAPE_FROB1 + (FE_G1 - s.src) / 12;   // g1, g2, g3
+            neg = s.kind == FE_CONJ;
+            st++;
+        }
+        if (tape >= 0) {
+            run_tape(g, T, tape, ws, in0, in1, s.dst, FE_TMP);
+        } else {
+            par(g, W, 12, [&](int c) {
+                Fp v = ws[in0 + c];
+                if (neg && c >= 6) fp_neg(v, v);
+                ws[s.dst + c] = v;
+            });
+        }
+    }
+    par(g, W, 144, [&](int k) { out[i * 144 + k] = w[FE_G0 * 12 + k]; });
 }
 
 // ---- recording and scheduling the tapes (host only) ---------------------------
@@ -1853,8 +2033,11 @@ inline bool tb_ready(const Builder& b, int v, int level) {
 // forbids it (else by a last level of moves), temporaries in the lowest
 // slot free since the level after their last read.  A level's operations
 // are laid out as rows of W (thread t runs positions t, t + W, ... in
-// order), no-ops as filler.
-inline void tb_finish(Builder& b, Tapes& T, int id, int W, int max_temps) {
+// order), no-ops as filler.  Without ``chains`` a linear operation never
+// joins the level of an operand: each level is then operations that do not
+// depend on each other, a row or two wide, where chains may stack a
+// dependent run of linear operations on one thread of a level.
+inline void tb_finish(Builder& b, Tapes& T, int id, int W, int max_temps, bool chains = true) {
     const int n = b.n;
     if (b.error) {
         T.error = 1;
@@ -1967,7 +2150,7 @@ inline void tb_finish(Builder& b, Tapes& T, int id, int W, int max_temps) {
                 for (int o = 0; o < 2 && ok; o++) {
                     int x = o ? b.c[v] : b.a[v];
                     if (x < 0 || (b.lev[x] != -2 && b.lev[x] < level)) continue;
-                    if (b.lev[x] != level || (t >= 0 && b.thr[x] != t)) ok = false;
+                    if (!chains || b.lev[x] != level || (t >= 0 && b.thr[x] != t)) ok = false;
                     else t = b.thr[x];
                 }
                 if (!ok) continue;
@@ -2231,27 +2414,78 @@ void build_tapes(Tapes& T, Builder& b) {
         tb_out(b, x, LOC_OUT);
         tb_finish(b, T, TAPE_FQ12_MUL, FQ12_W, FQ12_TEMPS);
     }
+    {   // the final exponentiation's cyclotomic square (in0 -> out), and its
+        // Frobenius maps p, p^2, p^3 of g1, g2, g3 into a (absolute slots)
+        Fp12T<TV> x;
+        Fp2T<TV> gam[5];
+        tb_begin(b);
+        tb_in(b, x, LOC_IN0);
+        fp12_cyclotomic_sqr(x, x);
+        tb_out(b, x, LOC_OUT);
+        // without chains: chains would stack a square's output sums on a
+        // few threads of a level
+        tb_finish(b, T, TAPE_CYC_SQR, FE_W, FE_TEMPS, false);
+        for (int n = 1; n <= 3; n++) {
+            tb_begin(b);
+            for (int k = 0; k < 5; k++) tb_in(b, gam[k], FE_GAMMA + 2 * k);
+            tb_in(b, x, FE_G1 - 12 * (n - 1));
+            fp12_frobenius(x, x, n, gam);
+            tb_out(b, x, FE_A);
+            tb_finish(b, T, TAPE_FROB1 + n - 1, FE_W, FE_TEMPS);
+        }
+    }
+    {   // the psi check's doubling, mixed add and tail (absolute slots)
+        Jac<Fp2T<TV> > t;
+        Fp2T<TV> x, y, cy, d1, d2;
+        TV cx;
+        tb_begin(b);
+        tb_in(b, t, PS_T);
+        jac_double(t, t);
+        tb_out(b, t, PS_T);
+        tb_finish(b, T, TAPE_PSI_DBL, PSI_W, PSI_TEMPS);
+        tb_begin(b);
+        tb_in(b, t, PS_T);
+        tb_in(b, x, PS_X);
+        tb_in(b, y, PS_Y);
+        jac_madd(t, x, y);
+        tb_out(b, t, PS_T);
+        tb_finish(b, T, TAPE_PSI_ADD, PSI_W, PSI_TEMPS);
+        tb_begin(b);
+        tb_in(b, x, PS_X);
+        tb_in(b, y, PS_Y);
+        tb_in(b, cx, PS_CX);
+        tb_in(b, cy, PS_CY);
+        tb_in(b, t, PS_T);
+        psi_tail(d1, d2, x, y, t, cx, cy);
+        tb_out(b, d1, PS_D);
+        tb_out(b, d2, PS_D + 2);
+        tb_finish(b, T, TAPE_PSI_TAIL, PSI_W, PSI_TEMPS);
+    }
     if (b.error) T.error = 1;
 }
 
 // The tapes' shape for reports and checks: [error, operations, levels],
 // then per tape [levels, temporaries, products, rounds, positions
-// (operations and fillers)].
+// (operations and fillers), rows (a level's positions over the width,
+// rounded up: the operations its busiest thread runs in turn)].
 inline void tape_stats(const Tapes& T, int* out) {
     out[0] = T.error;
     out[1] = T.n_ops;
     out[2] = T.n_levels;
     for (int t = 0; t < N_TAPES; t++) {
         const TapeInfo& f = T.info[t];
-        int* o = out + 3 + 5 * t;
+        int* o = out + 3 + 6 * t;
         o[0] = f.n_levels;
         o[1] = f.temps;
         o[2] = f.muls;
         o[3] = f.rounds;
         o[4] = T.level_start[f.first_level + f.n_levels] - T.level_start[f.first_level];
+        o[5] = 0;
+        for (int l = f.first_level; l < f.first_level + f.n_levels; l++)
+            o[5] += (T.level_start[l + 1] - T.level_start[l] + f.width - 1) / f.width;
     }
 }
-#define TAPE_STATS (3 + 5 * bls::N_TAPES)
+#define TAPE_STATS (3 + 6 * bls::N_TAPES)
 
 // ---- the group kernels on the host --------------------------------------------
 //
@@ -2310,6 +2544,18 @@ inline void host_fq12_mul(const u32* a, const u32* b, u32* out, long n) {
     std::vector<Fp> ws(FQ12_WS);
     for (long i = 0; i < n; i++)
         lane_fq12_mul<FQ12_W>(Grp{0, 0}, host_view(), ws.data(), i, a, b, out);
+}
+
+inline void host_final_exp_hard(const u32* in, u32* out, long n) {
+    std::vector<Fp> ws(FE_WS);
+    for (long i = 0; i < n; i++)
+        lane_final_exp_hard<FE_W>(Grp{0, 0}, host_view(), ws.data(), i, in, out);
+}
+
+inline void host_g2_subgroup(const u32* xq, const u32* yq, uint8_t* out, long n) {
+    std::vector<Fp> ws(PSI_WS);
+    for (long i = 0; i < n; i++)
+        lane_g2_subgroup<PSI_W>(Grp{0, 0}, host_view(), ws.data(), i, xq, yq, out);
 }
 #endif
 

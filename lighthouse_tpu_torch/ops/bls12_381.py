@@ -29,7 +29,8 @@ Fp products (``bls_cuda.miller_reduce_fp_muls``).
 
 ``final_exp_hard_device`` is the kernel wrapper of row 9, the hard part of
 the final exponentiation (``lh_final_exp_hard``: the whole x-ladder in one
-launch, one thread a lane), with ``final_exp_hard_plain`` beside it: the
+launch, a warp a lane running the cyclotomic square, Fq12 product and
+Frobenius tapes), with ``final_exp_hard_plain`` beside it: the
 Granger-Scott cyclotomic squaring, the Frobenius maps and the x-ladder of
 ``lighthouse_tpu/ops/bls12_381.py:631-714``.  Bound: Fp products
 (``bls_cuda.FINAL_EXP_HARD_LANE`` a lane).
@@ -442,10 +443,12 @@ def miller_reduce_device(xp, yp, xq, yq, mask) -> torch.Tensor:
         launches += 1
         half //= 2
     miller_reduce_device.launches += launches
+    miller_reduce_device.calls += 1
     return f[:1].clone()
 
 
 miller_reduce_device.launches = 0
+miller_reduce_device.calls = 0
 
 
 def multi_pairing_device(pairs, device=None):

@@ -8,11 +8,13 @@ check
 
 Division of labour, as in the JAX package:
 
-- host: native C++ decompression and final exponentiation
-  (``csrc/bls_host.cc``; ``final_exp_is_one`` routes the hard part to the
-  card under ``LHGPU_DEVICE_FINAL_EXP=1``), the random scalars and blinding points (from
-  ``secrets``: a predictable generator would let an attacker forge a
-  batch), hash-to-G2 in Python (memoized), and the lane layout;
+- host: native C++ decompression, the final exponentiation's easy part,
+  and on the CPU its hard part (``csrc/bls_host.cc``); on a CUDA device
+  ``final_exp_is_one`` sends the hard part to the card (row 9;
+  ``LHGPU_DEVICE_FINAL_EXP`` forces either route); the random scalars and
+  blinding points (from ``secrets``: a predictable generator would let an
+  attacker forge a batch), hash-to-G2 in Python (memoized), and the lane
+  layout;
 - card, per chunk, ``pipeline_device`` (``lh_bls_pipeline``): the joint
   windowed G1×G2 scalar mul, the per-message G1 segment fold, the G2 tree
   sum, every Miller loop and the Fq12 product tree;
@@ -164,10 +166,12 @@ def pipeline_device(pkx, pky, sx, sy, hx, hy, digits, lane_mask, g1x, g1y,
         launches += 1
         half //= 2
     pipeline_device.launches += launches
+    pipeline_device.calls += 1
     return f[:1].clone()
 
 
 pipeline_device.launches = 0
+pipeline_device.calls = 0            # calls: a tree kernel launches once per level
 
 
 # --------------------------------------------------------------------------
@@ -180,7 +184,9 @@ def g2_subgroup_plain(xq: torch.Tensor, yq: torch.Tensor) -> torch.Tensor:
 
 def g2_subgroup_device(xq: torch.Tensor, yq: torch.Tensor) -> torch.Tensor:
     """ψ(Q) == [x]Q per affine G2 lane (int32 [N, 2, 12] each) -> bool[N].
-    Replaces ``lighthouse_tpu/ops/bls_backend.py:175`` ``_g2_subgroup_kernel``."""
+    Replaces ``lighthouse_tpu/ops/bls_backend.py:175`` ``_g2_subgroup_kernel``.
+    16 threads a lane run the scan's G2 doubling, mixed add and ψ tail from
+    tapes; bound: ``bls_cuda.PSI_LANE`` Fp products a lane."""
     bls_cuda.check(xq, (2, bi.L), "g2_subgroup xq")
     bls_cuda.check(yq, (2, bi.L), "g2_subgroup yq")
     dev = bls_cuda.same_device("g2_subgroup", xq, yq)
@@ -250,11 +256,17 @@ KERNELS = (pipeline_device, g2_subgroup_device, msm.blinded_fold_device, dp.fq12
 # the final exponentiation route (row 9)
 # --------------------------------------------------------------------------
 
-def device_final_exp() -> bool:
-    """``LHGPU_DEVICE_FINAL_EXP``: ``1`` sends the hard part of the final
-    exponentiation to row 9 on the card; unset or ``0`` keeps the native
-    host final exponentiation (``csrc/bls_host.cc``)."""
-    env = os.environ.get("LHGPU_DEVICE_FINAL_EXP", "0")
+def device_final_exp(device) -> bool:
+    """Does the hard part of the final exponentiation go to row 9 on
+    ``device``?  ``LHGPU_DEVICE_FINAL_EXP=1`` sends it there, ``0`` keeps the
+    native host final exponentiation (``csrc/bls_host.cc``), anything else
+    raises.  Unset, a CUDA device takes row 9 (a group lane, faster on the
+    H100 than the host's native one) and the CPU the native library (the
+    plain ladder would be slow there), as the JAX package defaults to its
+    device ladder on a TPU when its native library is absent."""
+    env = os.environ.get("LHGPU_DEVICE_FINAL_EXP")
+    if env is None:
+        return torch.device(device).type == "cuda"
     if env not in ("0", "1"):
         raise ValueError(f"LHGPU_DEVICE_FINAL_EXP={env!r}: use 0 or 1")
     return env == "1"
@@ -266,8 +278,9 @@ def final_exp_is_one(f, device) -> bool:
     Port of ``_final_exp_is_one`` (``lighthouse_tpu/ops/bls_backend.py:419``),
     with one routing difference: the JAX package takes its native library
     first when it is present, then host Python, then the device ladder; the
-    port always builds its native library, so here ``LHGPU_DEVICE_FINAL_EXP=1``
-    outranks it.  On that route the easy part runs on the host
+    port always builds its native library, so here the route is
+    ``device_final_exp(device)``: row 9 on a CUDA device unless
+    ``LHGPU_DEVICE_FINAL_EXP=0``.  On that route the easy part runs on the host
     (``fields.final_exp_easy``, one inversion), the hard part on ``device``
     (``final_exp_hard_device``: row 9 on the card, its plain version on the
     CPU), and the result is compared with one.  A fault of row 9, or a
@@ -275,7 +288,7 @@ def final_exp_is_one(f, device) -> bool:
     back to the native or Python path."""
     from lighthouse_tpu_torch.crypto.bls.fields import Fq12, final_exp_easy
 
-    if not device_final_exp():
+    if not device_final_exp(device):
         return native_bls.final_exp_is_one(f)
     m = final_exp_easy(f)
     out = t12.final_exp_hard_device(bi.to_tensor(t12.fq12_to_words(m)[None], device))
@@ -288,6 +301,7 @@ def final_exp_is_one(f, device) -> bool:
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    pipeline_device.calls = msm.blinded_fold_device.calls = 0
 
 
 # --------------------------------------------------------------------------

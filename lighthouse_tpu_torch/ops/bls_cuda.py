@@ -99,6 +99,15 @@ CYC_EXP_X = 63 * CYC_SQR + _X_ADDS * FP12_MUL
 FROBENIUS_ROUND = 5 * FP2_MUL
 FINAL_EXP_HARD_LANE = 5 * CYC_EXP_X + 2 * CYC_SQR + 8 * FP12_MUL + 6 * FROBENIUS_ROUND
 
+# the tapes a group lane of rows 9 and 6 runs, and how often (a CPU test
+# holds their products to FINAL_EXP_HARD_LANE and PSI_LANE); with the lane's
+# other levels (loads, copies, conjugations, the verdict), one row each
+FINAL_EXP_HARD_TAPES = {"cyc_sqr": 5 * 63 + 2, "fq12_mul": 5 * _X_ADDS + 8, "frob1": 1,
+                        "frob2": 1, "frob3": 1}
+FINAL_EXP_HARD_OTHER_LEVELS = 1 + 5 * 2 + 2 + 1
+PSI_TAPES = {"psi_dbl": 63, "psi_add": _X_ADDS, "psi_tail": 1}
+PSI_OTHER_LEVELS = 3
+
 
 def _track_fp_muls(digits: np.ndarray) -> np.ndarray:
     """Per lane, the field products of one windowed scalar-mul track over
@@ -195,28 +204,44 @@ def tapes_lib() -> ctypes.CDLL:
 
 
 TAPE_NAMES = ("miller_setup", "miller_dbl", "miller_add", "g1_dbl", "g1_add", "g2_add",
-              "g1g2_dbl", "g1g2_add", "fq12_mul")
-GROUP_KERNELS = ("k_gj_scalar_mul", "k_g1_scalar_mul", "k_miller", "k_fq12_mul")
+              "g1g2_dbl", "g1g2_add", "fq12_mul", "cyc_sqr", "frob1", "frob2", "frob3",
+              "psi_dbl", "psi_add", "psi_tail")
+GROUP_KERNELS = ("k_gj_scalar_mul", "k_g1_scalar_mul", "k_miller", "k_fq12_mul",
+                 "k_final_exp_hard", "k_g2_subgroup")
 GROUP_TAPES = {"k_gj_scalar_mul": TAPE_NAMES[4:8], "k_g1_scalar_mul": TAPE_NAMES[3:5],
-               "k_miller": TAPE_NAMES[0:3], "k_fq12_mul": TAPE_NAMES[8:9]}
+               "k_miller": TAPE_NAMES[0:3], "k_fq12_mul": TAPE_NAMES[8:9],
+               "k_final_exp_hard": TAPE_NAMES[8:13], "k_g2_subgroup": TAPE_NAMES[13:16]}
+
+
+def lane_shape(stats: dict, plan: dict, other_levels: int) -> dict:
+    """A group lane's levels, product rounds and rows (``tape_stats`` rows),
+    from the tapes it runs (``plan``: tape -> runs) and its other levels."""
+    shape = {k: sum(stats["tapes"][t][k] * n for t, n in plan.items())
+             for k in ("levels", "rounds", "rows", "products")}
+    shape["levels"] += other_levels
+    shape["rows"] += other_levels
+    return shape
 
 
 def tape_stats() -> dict:
     """Per tape its levels, temporaries, products, rounds (a level's
-    products over its group's width, rounded up) and positions (operations
-    and fillers, 8 bytes each); per group kernel its lane's workspace (Fp
-    slots), group width and the tapes it stages in shared memory."""
-    n = len(TAPE_NAMES)
-    out = (ctypes.c_int * (3 + 5 * n + 8))()
+    products over its group's width, rounded up), positions (operations
+    and fillers, 8 bytes each) and rows (the operations a level's busiest
+    thread runs in turn, summed over the levels); per group kernel its
+    lane's workspace (Fp slots), group width and the tapes it stages in
+    shared memory."""
+    n, k = len(TAPE_NAMES), len(GROUP_KERNELS)
+    out = (ctypes.c_int * (3 + 6 * n + 2 * k))()
     tapes_lib().lh_tape_stats(out)
     if out[0]:
         raise RuntimeError("the group kernels' tapes did not build")
-    tapes = {name: dict(zip(("levels", "temps", "products", "rounds", "positions"),
-                            out[3 + 5 * i:8 + 5 * i]))
+    tapes = {name: dict(zip(("levels", "temps", "products", "rounds", "positions", "rows"),
+                            out[3 + 6 * i:9 + 6 * i]))
              for i, name in enumerate(TAPE_NAMES)}
-    more = out[3 + 5 * n:]
-    kernels = {k: {"workspace_slots": more[i], "width": more[4 + i], "tapes": GROUP_TAPES[k]}
-               for i, k in enumerate(GROUP_KERNELS)}
+    more = out[3 + 6 * n:]
+    kernels = {name: {"workspace_slots": more[i], "width": more[k + i],
+                      "tapes": GROUP_TAPES[name]}
+               for i, name in enumerate(GROUP_KERNELS)}
     return {"tapes": tapes, "kernels": kernels}
 
 

@@ -106,10 +106,12 @@ def blinded_fold_device(X, Y, Z, ux, uy, n_segments: int):
     inf = torch.empty(n_segments, dtype=torch.uint8, device=dev)
     bls_cuda.launch("lh_blinded_final", X, Y, Z, ux, uy, xa, ya, inf, n_segments)
     blinded_fold_device.launches += 1
+    blinded_fold_device.calls += 1
     return xa, ya, inf.bool()
 
 
 blinded_fold_device.launches = 0
+blinded_fold_device.calls = 0        # calls: a tree kernel launches once per level
 
 
 # --------------------------------------------------------------------------
@@ -170,10 +172,12 @@ def fold_device(xs, ys, digits, n_segments: int):
         return fold_plain(xs, ys, digits, n_segments)
     (X, Y, Z), launches = _fold_launch(xs, ys, digits, n_segments)
     fold_device.launches += launches
+    fold_device.calls += 1
     return X[:n_segments], Y[:n_segments], Z[:n_segments]
 
 
 fold_device.launches = 0
+fold_device.calls = 0
 
 
 # --------------------------------------------------------------------------
@@ -228,10 +232,12 @@ def gather_fold_device(tx, ty, lane_idx, digits, n_segments: int):
     inf = torch.empty(n_segments, dtype=torch.uint8, device=dev)
     bls_cuda.launch("lh_g1_affine", X, Y, Z, xa, ya, inf, n_segments)
     gather_fold_device.launches += launches + 1
+    gather_fold_device.calls += 1
     return xa, ya, inf.bool()
 
 
 gather_fold_device.launches = 0
+gather_fold_device.calls = 0
 
 
 def jacobian_rows_to_affine(X, Y, Z) -> list:

@@ -265,6 +265,7 @@ def fold_levels_device(leaves: torch.Tensor) -> torch.Tensor:
             _launch("lh_fold_levels", leaves.data_ptr(), out.data_ptr(), n,
                     _stream(leaves))
         fold_levels_device.launches += n.bit_length() - 1
+        fold_levels_device.calls += 1
     return out
 
 
@@ -276,6 +277,8 @@ def fold_to_root_device(leaves: torch.Tensor) -> torch.Tensor:
     if leaves.device.type == "cpu":
         return fold_to_root_plain(leaves)
     x = leaves
+    if x.shape[0] > 1:
+        fold_to_root_device.calls += 1
     with torch.cuda.device(leaves.device):
         while x.shape[0] > 1:
             width = min(x.shape[0], _SUBTREE_WIDTH)
@@ -316,6 +319,7 @@ KERNELS = (hash_pairs_device, fold_levels_device, fold_to_root_device)
 def reset_launches() -> None:
     for k in KERNELS + (sha256_block_device,):
         k.launches = 0
+    fold_levels_device.calls = fold_to_root_device.calls = 0
 
 
 reset_launches()

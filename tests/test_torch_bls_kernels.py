@@ -8,7 +8,8 @@ multiplications, Miller loop, Fq12 product) through the header's host
 versions of the group kernels, which run a group's threads one after
 another.  Running them over the same inputs as the plain versions checks
 the kernels' arithmetic (field, tower, curve formulas, Miller loop, ψ
-check, affine conversion) bit for bit without a card, the group lanes with
+check, affine conversion) bit for bit without a card, the group lanes (the
+ψ check's too, against its one-thread lane) with
 their threads in ascending and in descending order (an operation reading a
 slot another thread writes in the same level would differ); the build with
 a multiply counter also checks
@@ -71,6 +72,38 @@ void h_miller(const u32* xp, const u32* yp, const u32* zp, const u32* xq, const 
 }
 void h_psi(const u32* xq, const u32* yq, uint8_t* out, long n) {
     for (long i = 0; i < n; i++) lane_g2_subgroup(i, xq, yq, out);
+}
+void h_psi_group(const u32* xq, const u32* yq, uint8_t* out, long n) {
+    host_g2_subgroup(xq, yq, out, n);
+}
+// S = [|x|]Q of the psi scan, rows [n, 3, 2, 12]: the group lane's
+// workspace after the lane (group 1) or the one-thread scan (group 0)
+void h_psi_scan(int group, const u32* xq, const u32* yq, u32* S, long n) {
+    std::vector<Fp> ws(PSI_WS);
+    uint8_t ok;
+    for (long i = 0; i < n; i++) {
+        Jac<Fp2> T;
+        if (group) {
+            lane_g2_subgroup<PSI_W>(Grp{0, 0}, host_view(), ws.data(), 0, xq + i * 24, yq + i * 24,
+                                    &ok);
+            for (int c = 0; c < 2; c++) {
+                T.X.c[c] = ws[PS_T + c];
+                T.Y.c[c] = ws[PS_T + 2 + c];
+                T.Z.c[c] = ws[PS_T + 4 + c];
+            }
+        } else {
+            Fp2 x, y;
+            ld(x, xq, i);
+            ld(y, yq, i);
+            jac_zero(T);
+            bool inf = true;
+            for (int b = 63; b >= 0; b--) dbl_add_step(T, inf, x, y, (int)((BLS_X_ABS >> b) & 1));
+            if (inf) jac_zero(T);
+        }
+        st(S, 3 * i, T.X);
+        st(S, 3 * i + 1, T.Y);
+        st(S, 3 * i + 2, T.Z);
+    }
 }
 void h_blinded_final(const u32* X, const u32* Y, const u32* Z, const u32* ux, const u32* uy,
                      u32* xa, u32* ya, uint8_t* inf, long n) {
@@ -263,6 +296,52 @@ def test_psi_lanes_fail_closed_and_equal_plain(lanes):
                                                                                   True, False]
 
 
+@pytest.fixture(scope="module")
+def psi_case():
+    """Affine G2 lanes for the ψ check: multiples of the generator, a point
+    of order 13 (its scan meets the H == 0 chord at bit 60, where T = 12Q =
+    -Q, and drives Z to 0), a point on the curve outside G2, and the
+    generator padding of a batch; their plain verdicts and the plain scan's
+    S = [|x|]Q word rows [n, 3, 2, 12]."""
+    g2 = cv.g2_generator()
+    pts = [cv.g2_mul(g2, 77), T.SMALL_ORDER_G2, cv.g2_mul(g2, 5), T.non_subgroup_point(9), g2, g2]
+    xq, yq = (_np(t) for t in ec.g2_words(pts, CPU))
+    xt, yt = _t(xq), _t(yq)
+    F, zero = ec._G2, torch.zeros_like(xt)
+    X, Y, Z = zero, zero, zero
+    inf = torch.ones(len(pts), dtype=torch.bool)
+    for bit in ec.X_BITS64:
+        X, Y, Z, inf = ec.dbl_add_step(F, X, Y, Z, inf, xt, yt, bit)
+    scan = np.ascontiguousarray(np.stack([_np(ec._select(inf, zero, c, F)) for c in (X, Y, Z)], 1))
+    plain = bb.g2_subgroup_plain(torch.from_numpy(xq.view(np.int32)),
+                                 torch.from_numpy(yq.view(np.int32))).tolist()
+    return xq, yq, scan, plain
+
+
+@ORDERS
+def test_psi_group_lanes_equal_the_one_thread_lanes_and_plain(lanes, psi_case, reverse):
+    """Row 6's group lane (host build, 16 threads in either order): the same
+    verdicts as the one-thread lane and the plain version, S word for word
+    with both scans, the order-13 lane's Z driven to 0 by the H == 0 chord
+    (read False, fail closed), and PSI_LANE products a lane."""
+    xq, yq, scan, plain = psi_case
+    n = xq.shape[0]
+    assert plain == [True, False, True, False, True, True]
+    group, one = np.zeros(n, np.uint8), np.zeros(n, np.uint8)
+    with _level_order(lanes, reverse):
+        count = _counted(lanes, lanes.h_psi_group, _ptr(xq), _ptr(yq), _ptr(group),
+                         ctypes.c_long(n))
+    lanes.h_psi(_ptr(xq), _ptr(yq), _ptr(one), ctypes.c_long(n))
+    assert count == n * bls_cuda.PSI_LANE
+    assert group.tolist() == one.tolist() == [int(v) for v in plain]
+    s_group, s_one = np.zeros_like(scan), np.zeros_like(scan)
+    with _level_order(lanes, reverse):
+        lanes.h_psi_scan(1, _ptr(xq), _ptr(yq), _ptr(s_group), ctypes.c_long(n))
+    lanes.h_psi_scan(0, _ptr(xq), _ptr(yq), _ptr(s_one), ctypes.c_long(n))
+    assert np.array_equal(s_group, scan) and np.array_equal(s_one, scan)
+    assert not scan[1, 2].any() and all(scan[i, 2].any() for i in (0, 2, 3, 4))
+
+
 def test_blinded_final_lanes_equal_plain(lanes):
     pks = T.consecutive_pubkeys(900, 3)
     pts = [pk.point for pk in pks] + [cv.g1_neg(pks[0].point)]
@@ -425,6 +504,28 @@ def test_multiply_counts_of_the_path_shapes():
     live = np.array([1, 1, 0, 1, 1, 1, 1, 1], bool)
     assert bls_cuda.blinded_fold_fp_muls(live, 2) == (3 + 2 + 2) * 16 + 2 * (610 + 4)
     assert bls_cuda.IMADS_PER_FP_MUL == 300
+
+
+def test_group_lane_tapes_of_rows_9_and_6():
+    """The tapes rows 9 and 6 run hold the products their bounds count
+    (FINAL_EXP_HARD_LANE and PSI_LANE a lane), each product level within
+    one round of the group's width (a warp for row 9, 16 threads for the
+    ψ check)."""
+    stats = bls_cuda.tape_stats()
+    t = stats["tapes"]
+    shape = bls_cuda.lane_shape(stats, bls_cuda.FINAL_EXP_HARD_TAPES,
+                                bls_cuda.FINAL_EXP_HARD_OTHER_LEVELS)
+    assert shape["products"] == bls_cuda.FINAL_EXP_HARD_LANE
+    assert bls_cuda.lane_shape(stats, bls_cuda.PSI_TAPES, 0)["products"] == bls_cuda.PSI_LANE
+    assert [t[k]["products"] for k in ("cyc_sqr", "frob1", "frob2", "frob3")] == [
+        bls_cuda.CYC_SQR] + [n * bls_cuda.FROBENIUS_ROUND for n in (1, 2, 3)]
+    assert [t[k]["products"] for k in ("psi_dbl", "psi_add")] == [
+        bls_cuda.JAC_DOUBLE * bls_cuda.FP2_MUL, 11 * bls_cuda.FP2_MUL]
+    # rounds == product depth: no product level needs a second round
+    assert [t[k]["rounds"] for k in ("cyc_sqr", "frob1", "frob2", "frob3", "psi_dbl",
+                                     "psi_add", "psi_tail")] == [1, 1, 2, 3, 3, 5, 3]
+    kernels = stats["kernels"]
+    assert (kernels["k_final_exp_hard"]["width"], kernels["k_g2_subgroup"]["width"]) == (32, 16)
 
 
 @pytest.mark.cuda

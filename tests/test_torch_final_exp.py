@@ -6,12 +6,16 @@
 on cyclotomic lanes m = ``final_exp_easy(f)`` (the Granger-Scott square is
 right only there).  Values are compared as canonical integers, tolerance 0.
 The kernel's lane code is built for the host with g++ and held to the
-oracle piece by piece, with the Fp product count behind its bound.  The
+oracle piece by piece, with the Fp product count behind its bound: the
+group lane the kernel runs (a warp's threads run one after another, in
+ascending and in descending order) word for word against the one-thread
+lane, the plain version and the oracle.  The
 JAX package's host ``final_exp_hard``, ``frobenius`` and ``_pow_u_cyc``
 are the cheap reference in every run; its jitted device function (an XLA
 compile of about 90 s) is the ``slow`` A/B.  The
 route (``bls_backend.final_exp_is_one`` under ``LHGPU_DEVICE_FINAL_EXP``)
-gives the native verdicts on the CPU, and a fault in row 9 raises.
+gives the native verdicts on the CPU, defaults to the device on a CUDA
+device and to the native library on the CPU, and a fault in row 9 raises.
 """
 
 import ctypes
@@ -42,6 +46,9 @@ using namespace bls;
 namespace bls { unsigned long long bls_fp_mul_count = 0; }
 extern "C" {
 unsigned long long h_count() { return bls::bls_fp_mul_count; }
+void h_reverse(int on) { level_order_reversed = on != 0; }
+// the group lane the kernel runs (a warp's threads in turn)
+void h_fe_group(const u32* in, u32* out, long n) { host_final_exp_hard(in, out, n); }
 // op 0: the whole hard part; 1: cyclotomic square; 2: x-ladder;
 // 3..5: Frobenius p, p^2, p^3
 void h_fe(int op, const u32* in, u32* out, long n) {
@@ -167,6 +174,42 @@ def test_lane_code_equals_the_oracle_and_its_product_count(lanes):
         assert frob_count == n * bls_cuda.FROBENIUS_ROUND
 
 
+@pytest.fixture(scope="module")
+def group_case():
+    """Random cyclotomic lanes, the conjugate (inverse) of the first, and one,
+    with the plain version's rows and the host oracle's values."""
+    ms = _cyclotomic(6, 2)
+    ms += [ms[0].conj(), Fq12.ONE]
+    rows = _rows(ms)
+    plain = np.ascontiguousarray(bi.to_numpy(t12.final_exp_hard_plain(bi.to_tensor(rows, CPU))))
+    return ms, rows, plain, [fields.final_exp_hard(m) for m in ms]
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["ascending", "descending"])
+def test_group_lane_equals_the_one_thread_lane_plain_and_oracle(lanes, group_case, reverse):
+    """The kernel's group lane (host build, the warp's threads in either
+    order) word for word against the one-thread lane and the plain version,
+    equal to fields.final_exp_hard and the JAX package's host final_exp_hard,
+    with FINAL_EXP_HARD_LANE products a lane."""
+    ms, rows, plain, oracle = group_case
+    out = np.zeros_like(rows)
+    lanes.h_reverse(int(reverse))
+    try:
+        before = lanes.h_count()
+        lanes.h_fe_group(ctypes.c_void_p(rows.ctypes.data), ctypes.c_void_p(out.ctypes.data),
+                         ctypes.c_long(rows.shape[0]))
+        count = lanes.h_count() - before
+    finally:
+        lanes.h_reverse(0)
+    one_thread, _ = _run_lanes(lanes, 0, rows)
+    assert np.array_equal(out, one_thread)
+    assert np.array_equal(out, plain)
+    assert _values(out) == oracle
+    assert [_coeffs(v) for v in _values(out)] == [_jax_hard(m) for m in ms]
+    assert oracle[2] == oracle[0].conj() and oracle[3] == Fq12.ONE
+    assert count == len(ms) * bls_cuda.FINAL_EXP_HARD_LANE
+
+
 def test_wrapper_checks_its_input():
     with pytest.raises(TypeError):
         t12.final_exp_hard_device(bi.u64(bi.to_tensor(_rows([Fq12.ONE]), CPU)))
@@ -185,17 +228,52 @@ def _pairing_products():
 def test_route_gives_the_native_verdicts_on_the_cpu(monkeypatch):
     one, not_one = _pairing_products()
     monkeypatch.delenv("LHGPU_DEVICE_FINAL_EXP", raising=False)
-    assert not bb.device_final_exp()
+    assert not bb.device_final_exp(CPU)
     native_verdicts = [bb.final_exp_is_one(f, CPU) for f in (one, not_one)]
     assert native_verdicts == [True, False]
     monkeypatch.setenv("LHGPU_DEVICE_FINAL_EXP", "1")
-    assert bb.device_final_exp()
+    assert bb.device_final_exp(CPU)
     monkeypatch.setattr(native_bls, "final_exp_is_one",
                         lambda f: pytest.fail("the device route called the native library"))
     assert [bb.final_exp_is_one(f, CPU) for f in (one, not_one)] == native_verdicts
     monkeypatch.setenv("LHGPU_DEVICE_FINAL_EXP", "2")
     with pytest.raises(ValueError):
-        bb.device_final_exp()
+        bb.device_final_exp(CPU)
+
+
+def test_route_default_on_the_cpu_is_native(monkeypatch):
+    """Unset, the route follows the device: the CPU keeps the native host
+    final exponentiation (not the plain ladder); 0 and 1 force a route."""
+    one, not_one = _pairing_products()
+    monkeypatch.delenv("LHGPU_DEVICE_FINAL_EXP", raising=False)
+    assert bb.device_final_exp("cpu") is False
+    monkeypatch.setattr(t12, "final_exp_hard_plain",
+                        lambda m: pytest.fail("the CPU default ran the device route"))
+    assert [bb.final_exp_is_one(f, CPU) for f in (one, not_one)] == [True, False]
+    for env, want in (("0", False), ("1", True)):
+        monkeypatch.setenv("LHGPU_DEVICE_FINAL_EXP", env)
+        assert bb.device_final_exp(CPU) is want
+        assert bb.device_final_exp(torch.device("cuda")) is want
+
+
+def test_route_default_on_a_cuda_device_is_the_device(monkeypatch):
+    """Unset, a CUDA device takes row 9 (the card here stands in: its
+    tensors are made on the CPU and row 9 is its plain version), the easy
+    part on the host, and never the native library."""
+    one, not_one = _pairing_products()
+    monkeypatch.delenv("LHGPU_DEVICE_FINAL_EXP", raising=False)
+    cuda = torch.device("cuda")
+    assert bb.device_final_exp(cuda) is True
+    assert bb.device_final_exp("cuda:0") is True
+    to_tensor, seen = bi.to_tensor, []
+    monkeypatch.setattr(bi, "to_tensor", lambda a, device: seen.append(torch.device(device))
+                        or to_tensor(a, CPU))
+    monkeypatch.setattr(t12, "final_exp_hard_device",
+                        lambda m: seen.append("row 9") or t12.final_exp_hard_plain(m))
+    monkeypatch.setattr(native_bls, "final_exp_is_one",
+                        lambda f: pytest.fail("the CUDA default called the native library"))
+    assert [bb.final_exp_is_one(f, cuda) for f in (one, not_one)] == [True, False]
+    assert seen == [cuda, "row 9"] * 2
 
 
 def test_batch_verify_on_the_device_route(monkeypatch):
