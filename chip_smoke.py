@@ -158,6 +158,26 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     each final exponentiation route (the device-busy share; a kernel the
     wrappers launched in it but the trace lacks fails the run, and so does
     a device-route import without row 9) and one cProfiled import.
+16. The multi-device rungs (``lighthouse_tpu_torch/parallel/``) over
+    meshes that name this card 1, 2 and 4 times (a mesh's shards then run
+    one after another on it): row 19, ``sharded_miller_reduce``, against
+    its plain version, tolerance 0, on the block batch's pairs
+    (``prepare_pairs`` of phase 7's 131 sets) over meshes of 1, 2 and 4,
+    with its time, bound and plain time; one pair over 4 shards; a chunked
+    sharded multi-pairing against a monolithic one.  Then the main path,
+    counted: ``verify_signature_sets(backend="sharded")`` on the block
+    batch (the default mesh) and p50 of 3 verifies over meshes of 1 and 4
+    with their stage seconds, the full-width merkle dry run (the
+    2^20-validator epoch state's validator roots over 4) and
+    ``dryrun_multichip(4)``.  Afterwards: the ``cuda`` backend's verdict,
+    a wrong-message, a swapped-signature, an empty and a no-pubkey batch
+    reading False; row 20, ``sharded_fold_to_root``, against its plain
+    version and hashlib at the JAX package's shape over 4 and 3 and at
+    full width over 4, the full-width root also against the single-device
+    fold; ``epoch_pass_sharded`` over 4 on phase 8's columns against the
+    single-device pass and ``gather_fold_sharded`` over 4 at phase 12's
+    full shape against the single-device fold, both tolerance 0; peak
+    device memory under 8 GB.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; the one before that the kernel table.
@@ -424,12 +444,14 @@ def main() -> int:
 
     del state, replay
     block_sets = bls_phases(torch, np, native, dev, table, build_s, max_mhz)
-    epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s)
+    shard_inputs = epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s)
     kzg_batch = kzg_phases(torch, np, native, dev, table, build_s, max_mhz)
-    ingest_phases(torch, np, dev, table, max_mhz)
+    shard_inputs["fold"] = ingest_phases(torch, np, dev, table, max_mhz)
     final_exp_phase(torch, np, native, dev, table, max_mhz, block_sets, kzg_batch)
-    del block_sets, kzg_batch
+    del kzg_batch
     block_phase(torch, np, dev, table)
+    sharded_phase(torch, np, dev, table, max_mhz, int32_ops_per_s, block_sets, shard_inputs)
+    del block_sets, shard_inputs
     log(f"calls on the main paths (the table's launches count a tree kernel's levels): "
         f"{ {k: CALLS[k] for k in table} }")
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from start to the kernel table")
@@ -823,8 +845,11 @@ def host_top5(fn) -> list:
     return [(name, round(ms, 2)) for ms, name in own]
 
 
-def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> None:
-    """Phases 8-9: the epoch boundary of a 2^20-validator Deneb state."""
+def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> dict:
+    """Phases 8-9: the epoch boundary of a 2^20-validator Deneb state.
+    Returns phase 8's pass inputs (columns, tables, params) and the state's
+    validator roots, the leaves of its registry tree (phase 16 splits
+    them over a mesh)."""
     from lighthouse_tpu_torch import testing as T
     from lighthouse_tpu_torch.ops import epoch_kernels as ek
     from lighthouse_tpu_torch.ops import sha256 as sha
@@ -939,6 +964,12 @@ def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> None
     log(f"sha256_block == hashlib on all {msgs.shape[0]} source messages; shuffle_rounds == "
         f"compute_shuffled_index at {sample.size} sampled positions")
     del args, cases, sha_state, sha_block, full_src_t, piv_t, src_t
+    from lighthouse_tpu_torch.types.registry import ValidatorRegistryType
+
+    # after phase 8's own counts; phase 9 reads its counts over its run alone
+    shard_inputs = {"epoch_args": (columns, tables, params),
+                    "registry_leaves": ValidatorRegistryType(N_FULL).batch_roots(
+                        state.validators, dev)}
 
     # -- 9. the main path at both fills: the stress fill whose shapes phase
     # 8 checked, then a mainnet-shaped registry, what a node crosses
@@ -952,6 +983,7 @@ def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> None
     log(f"built the {N_FULL}-validator mainnet-fill epoch state in "
         f"{time.perf_counter() - t0:.2f} s")
     boundary_path(torch, np, dev, state, spec, "mainnet")
+    return shard_inputs
 
 
 def boundary_path(torch, np, dev, state, spec, fill: str) -> dict:
@@ -1351,8 +1383,10 @@ TAMPERED_ROWS = 16
 EDGE_ROWS = 4096                 # the edge case's table; row 12 runs over as many lanes
 
 
-def ingest_phases(torch, np, dev, table, max_mhz) -> None:
-    """Phases 12-13: the gossip attestation flood and the trusted-setup load."""
+def ingest_phases(torch, np, dev, table, max_mhz) -> dict:
+    """Phases 12-13: the gossip attestation flood and the trusted-setup load.
+    Returns the host inputs of row 11 at config 3's full shape (phase 16
+    folds them over a mesh)."""
     from lighthouse_tpu_torch import testing as T
     from lighthouse_tpu_torch.chain import columnar_ingest as ci
     from lighthouse_tpu_torch.chain import pubkey_plane
@@ -1425,9 +1459,11 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> None:
     reps = FULL_TABLE_ROWS // FLOOD_VALIDATORS
     ftx, fty = (bi.to_tensor(np.tile(r, (reps, 1)), dev) for r in (rows_x, rows_y))
     full_rows = rng.integers(0, FULL_TABLE_ROWS, FLOOD_ATTS)
-    full_args = gather_case(ftx, fty, full_rows, np.repeat(np.arange(FULL_GROUPS),
-                                                           FLOOD_ATTS // FULL_GROUPS),
-                            FULL_GROUPS, scalars(FLOOD_ATTS))
+    full_fold = {"rows": (rows_x, rows_y), "lanes": full_rows,
+                 "groups": np.repeat(np.arange(FULL_GROUPS), FLOOD_ATTS // FULL_GROUPS),
+                 "scalars": scalars(FLOOD_ATTS)}
+    full_args = gather_case(ftx, fty, full_rows, full_fold["groups"], FULL_GROUPS,
+                            full_fold["scalars"])
     # edges: a group of P and -P under one scalar (the identity), an empty
     # group, non-power-of-two groups, a repeated row
     ex = list(cell["points"][:EDGE_ROWS - 1]) + [cv.g1_neg(cell["points"][0])]
@@ -1672,6 +1708,7 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> None:
     log(f"load_trusted_setup(dev({KZG_WIDTH}) as a ceremony, validate=True) == KzgSettings.dev; a "
         f"non-G1 point at {bad_at} raises KzgError naming it; launches over phase 13 {launches()}")
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return full_fold
 
 
 FINAL_EXP_SEED = 20240317
@@ -2045,6 +2082,248 @@ def block_phase(torch, np, dev, table) -> None:
     log(f"host profile of one block import, top 5 by own time (ms): "
         f"{host_top5(lambda: chain.process_block(blocks[0]))}")
     log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+
+SHARD_COUNTS = (1, 2, 4)           # mesh sizes of phase 16 on the one card
+SHARD_TIMED_RUNS = 3               # sharded block verifies per mesh for the p50
+SHARD_CHUNK = 64                   # the chunked sharded run's chunk size
+
+
+def sharded_phase(torch, np, dev, table, max_mhz, int32_ops_per_s, block, inputs) -> None:
+    """Phase 16: the multi-device rungs over meshes that name the card 1 to 4
+    times (the shards of one mesh run one after another on it)."""
+    from lighthouse_tpu_torch import testing as T
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.ops import bls12_381 as t12
+    from lighthouse_tpu_torch.ops import bls_backend as bb
+    from lighthouse_tpu_torch.ops import bls_cuda, pubkey_kernels
+    from lighthouse_tpu_torch.ops import bigint as bi
+    from lighthouse_tpu_torch.ops import sha256 as sha
+    from lighthouse_tpu_torch.parallel import bls_sharded as bs
+    from lighthouse_tpu_torch.parallel import dryrun_worker as dw
+    from lighthouse_tpu_torch.parallel import epoch_sharded as es
+    from lighthouse_tpu_torch.parallel import msm_sharded as ms
+    from lighthouse_tpu_torch.state_transition import epoch_device
+
+    t_phase = time.perf_counter()
+    props = torch.cuda.get_device_properties(0)
+    imad_per_s = props.multi_processor_count * IMAD_LANES_PER_SM * max_mhz * 1e6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def cuda_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def once_ms(fn):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def bound(ops_ms: float, nbytes: int) -> tuple[float, str]:
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+    def rows_err(got, want) -> int:
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            raise SystemExit(f"shape {list(got.shape)} != {list(want.shape)}")
+        return int((bi.u64(got) - bi.u64(want)).abs().max())
+
+    # -- 16a. row 19 against its plain version on the block batch's pairs ------
+    t0 = time.perf_counter()
+    pairs = bb.prepare_pairs(T.fresh(block))
+    log(f"phase 16: prepare_pairs of the block batch ({len(pairs)} pairs) "
+        f"{time.perf_counter() - t0:.2f} s on the host")
+    row19 = {}
+    for n_dev in SHARD_COUNTS:
+        mesh = [dev] * n_dev
+        cols, mask = bs.lane_columns(pairs, n_dev)
+        cols, mask = tuple(c.to(dev) for c in cols), mask.to(dev)
+        got = bs.sharded_miller_reduce(cols, mask, mesh)
+        want, plain_ms = once_ms(lambda: bs.sharded_miller_reduce_plain(cols, mask, mesh))
+        err = rows_err(got, want)
+        if err != 0:
+            raise SystemExit(f"sharded_miller_reduce [mesh of {n_dev}]: kernels disagree with "
+                             f"the plain version (max err {err})")
+        ms_ = cuda_ms(lambda: bs.sharded_miller_reduce(cols, mask, mesh), 5)
+        m = mask.cpu().numpy()
+        per = m.shape[0] // n_dev
+        live = [m[i * per:(i + 1) * per] for i in range(n_dev)]
+        fp_muls = (sum(bls_cuda.miller_reduce_fp_muls(x) for x in live)
+                   + bls_cuda.tree_products(np.array([x.any() for x in live]))[0]
+                   * bls_cuda.FP12_MUL)
+        bound_ms, bound_by = bound(fp_muls * bls_cuda.IMADS_PER_FP_MUL / imad_per_s * 1e3,
+                                   m.shape[0] * (2 * 48 + 2 * 96 + 1) + 576)
+        row19[n_dev] = dict(err=err, ms=ms_, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, got=got)
+        log(f"kernel sharded_miller_reduce [mesh of {n_dev} x {per} lanes, {len(pairs)} live]: "
+            f"== plain (max err {err}); {ms_:.4f} ms, plain {plain_ms:.2f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {fp_muls} Fp products)")
+    one = t12.fq12_from_words(bi.to_numpy(row19[1]["got"]).reshape(12, 12))
+    if any(t12.fq12_from_words(bi.to_numpy(r["got"]).reshape(12, 12)) != one
+           for r in row19.values()):
+        raise SystemExit("sharded_miller_reduce: the meshes of 1, 2 and 4 give other products")
+    # edges: one pair over 4 shards (three all masked); chunked against monolithic
+    cols, mask = bs.lane_columns(pairs[:1], 4)
+    cols, mask = tuple(c.to(dev) for c in cols), mask.to(dev)
+    err = rows_err(bs.sharded_miller_reduce(cols, mask, [dev] * 4),
+                   bs.sharded_miller_reduce_plain(cols, mask, [dev] * 4))
+    if err != 0:
+        raise SystemExit(f"sharded_miller_reduce [1 pair over 4]: max err {err}")
+    chunked = bs.multi_pairing_sharded(pairs, [dev] * 4, chunk_size=SHARD_CHUNK)
+    mono = bs.multi_pairing_sharded(pairs, [dev] * 4, chunk_size=0)
+    if chunked != mono or not mono.is_one():
+        raise SystemExit("multi_pairing_sharded: chunked and monolithic products differ, or "
+                         "the valid block batch's product is not one")
+    log(f"sharded_miller_reduce: meshes of {SHARD_COUNTS} give one product; one pair over 4 "
+        f"shards == plain; chunked ({SHARD_CHUNK}) == monolithic, and one")
+    del row19[1]["got"], row19[2]["got"], row19[4]["got"], cols, mask
+
+    # -- 16b. the main path: the sharded backend and the dry run, counted -------
+    def verify(sets, mesh, ledger=None):
+        t = time.perf_counter()
+        ok = bs.verify_signature_sets_sharded(sets, mesh=mesh, ledger=ledger)
+        return ok, (time.perf_counter() - t) * 1e3
+
+    t12.miller_reduce_device.launches = t12.miller_reduce_device.calls = 0
+    bs.sharded_miller_reduce.launches = bs.sharded_miller_reduce.calls = 0
+    dw.sharded_fold_to_root.launches = dw.sharded_fold_to_root.calls = 0
+    sha.reset_launches()
+    runs = {}
+    ledgers = {}
+    api_ok = bls.verify_signature_sets(T.fresh(block), backend="sharded")
+    for n_dev in (1, 4):
+        ledgers[n_dev] = {}
+        runs[n_dev] = [verify(T.fresh(block), [dev] * n_dev, ledgers[n_dev])
+                       for _ in range(SHARD_TIMED_RUNS)]
+    leaves = inputs["registry_leaves"]
+    full_root = dw.merkle_dryrun([dev] * 4, leaves)
+    dry = dw.dryrun_multichip(4, dev)
+    launched = {"sharded_miller_reduce": bs.sharded_miller_reduce.launches,
+                "miller_reduce (row 10 inside)": t12.miller_reduce_device.launches,
+                "sharded_fold_to_root": dw.sharded_fold_to_root.launches,
+                "fold_to_root (row 3 inside)": sha.fold_to_root_device.launches}
+    CALLS["sharded_miller_reduce"] = bs.sharded_miller_reduce.calls
+    CALLS["sharded_merkle_fold"] = dw.sharded_fold_to_root.calls
+    if not (api_ok and all(ok for v in runs.values() for ok, _ in v)):
+        raise SystemExit(f"the block batch failed on the sharded backend: api {api_ok}, "
+                         f"runs {runs}")
+    idle = [k for k, v in launched.items() if v == 0]
+    if idle:
+        raise SystemExit(f"kernels never launched on the sharded path: {idle}")
+    for n_dev in (1, 4):
+        p50 = statistics.median(t for _, t in runs[n_dev])
+        stages = {k: round(v / SHARD_TIMED_RUNS * 1e3, 2) for k, v in ledgers[n_dev].items()}
+        log(f"sharded block batch, mesh of {n_dev} on one card: runs "
+            f"{[round(t, 1) for _, t in runs[n_dev]]} ms -> p50 {p50:.1f} ms; mean stages (ms) "
+            f"{stages}")
+    log(f"dry run over a mesh of 4: {dry['mesh']}, root {dry['root'][:16]}..., "
+        f"{dry['seconds']:.2f} s; launches over the sharded path {launched}")
+
+    # checks after the counted run
+    cuda_ok = bls.verify_signature_sets(T.fresh(block), backend="cuda", device=dev)
+    swapped = T.fresh(block)
+    swapped[0].signature, swapped[1].signature = swapped[1].signature, swapped[0].signature
+    nokey = T.fresh(block)
+    nokey[0] = api.SignatureSet(nokey[0].signature, [], nokey[0].message)
+    verdicts = {"wrong message": verify(T.with_wrong_message(T.fresh(block), 7), [dev] * 4)[0],
+                "swapped signatures": verify(swapped, [dev] * 4)[0],
+                "empty batch": verify([], [dev] * 4)[0],
+                "a set with no pubkeys": verify(nokey, [dev] * 4)[0]}
+    if not cuda_ok or any(verdicts.values()):
+        raise SystemExit(f"sharded verdicts: cuda backend {cuda_ok}, tampered {verdicts}")
+    log(f"the block batch verifies on sharded (meshes 1, 4, and the api's default mesh) and "
+        f"on cuda; tampered and empty batches read False on sharded {verdicts}")
+
+    # -- 16c. row 20 against its plain version and hashlib ------------------------
+    # (merkle_dryrun above held the full-width root to hashlib already)
+    single = sha.to_numpy(sha.fold_to_root_device(sha.to_tensor(leaves, dev)))
+    if not np.array_equal(full_root, single):
+        raise SystemExit("sharded merkle fold at full width: root differs from the "
+                         "single-device fold")
+    row20 = {}
+    for label, n_dev, words in (("JAX shape", 4, None), ("JAX shape", 3, None),
+                                (f"{leaves.shape[0]} validator roots", 4, leaves)):
+        if words is None:
+            n = n_dev * dw.LEAVES_PER_SHARD
+            words = np.arange(n * 8, dtype=np.uint32).reshape(n, 8)
+        want_root = full_root if words is leaves else dw.host_root(words, n_dev)
+        x = sha.to_tensor(words, dev)
+        mesh = [dev] * n_dev
+        got = dw.sharded_fold_to_root(x, mesh)
+        want, plain_ms = once_ms(lambda: dw.sharded_fold_to_root_plain(x, mesh))
+        err = rows_err(got, want)
+        if err != 0 or not np.array_equal(sha.to_numpy(got), want_root):
+            raise SystemExit(f"sharded merkle fold [{label}, mesh of {n_dev}]: kernels "
+                             f"disagree with the plain version or hashlib (max err {err})")
+        ms_ = cuda_ms(lambda: dw.sharded_fold_to_root(x, mesh), 10)
+        top_n = 1 << max(n_dev - 1, 0).bit_length()
+        n_pairs = words.shape[0] - n_dev + top_n - 1
+        bound_ms, bound_by = bound(n_pairs * sha.OPS_PER_PAIR / int32_ops_per_s * 1e3,
+                                   words.shape[0] * 32 + 32)
+        row20[(label, n_dev)] = dict(err=err, ms=ms_, plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by)
+        log(f"kernel sharded merkle fold [{label}: {words.shape[0]} leaves, mesh of {n_dev}]: "
+            f"== plain == hashlib (max err {err}); {ms_:.4f} ms, plain {plain_ms:.2f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {n_pairs} pairs)")
+    full20 = row20[(f"{leaves.shape[0]} validator roots", 4)]
+
+    # -- 16d. the epoch pass and the gather fold over a mesh of 4 ----------------
+    args = inputs["epoch_args"]
+    t0 = time.perf_counter()
+    got = es.epoch_pass_sharded(*args, mesh=[dev] * 4)
+    shard_s = time.perf_counter() - t0
+    want = epoch_device.epoch_pass(*args, dev)
+    if any(not np.array_equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit("epoch_pass_sharded over 4: scores, balances or effective balances "
+                         "differ from the single-device pass")
+    fold = inputs["fold"]
+    reps = FULL_TABLE_ROWS // fold["rows"][0].shape[0]
+    ftable = tuple(bi.to_tensor(np.tile(r, (reps, 1)), dev) for r in fold["rows"])
+    fargs = (fold["lanes"], np.asarray(fold["scalars"], np.uint64), fold["groups"], FULL_GROUPS)
+    t0 = time.perf_counter()
+    got = ms.gather_fold_sharded(ftable, *fargs, mesh=[dev] * 4)
+    fold_s = time.perf_counter() - t0
+    want = pubkey_kernels.gather_fold(ftable, *fargs)
+    if any(not np.array_equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit("gather_fold_sharded over 4: the points differ from the single-device "
+                         "gather_fold")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"epoch_pass_sharded over 4 ({args[0]['balances'].shape[0]} rows, {shard_s * 1e3:.1f} ms "
+        f"host wall) == the single-device pass; gather_fold_sharded over 4 ({FLOOD_ATTS} lanes, "
+        f"{FULL_GROUPS} groups, {FULL_TABLE_ROWS}-row table; {fold_s * 1e3:.1f} ms host wall) == "
+        f"the single-device fold; max_memory_allocated over phase 16 {peak} bytes")
+    if peak >= 8e9:
+        raise SystemExit(f"phase 16 peak device memory {peak} bytes is not under 8 GB")
+
+    r19 = row19[4]
+    table["sharded_miller_reduce"] = dict(
+        name="sharded_miller_reduce", route="cuda",
+        source="lighthouse_tpu_torch/csrc/bls12_381.cu",
+        replaces="lighthouse_tpu/parallel/bls_sharded.py:39",
+        launches=launched["sharded_miller_reduce"], max_abs_err=r19["err"], ms=r19["ms"],
+        plain_ms=r19["plain_ms"], bound_ms=r19["bound_ms"], bound_by=r19["bound_by"],
+        library_ms=None)
+    table["sharded_merkle_fold"] = dict(
+        name="sharded_merkle_fold", route="cuda", source="lighthouse_tpu_torch/csrc/sha256.cu",
+        replaces="lighthouse_tpu/parallel/dryrun_worker.py:40",
+        launches=launched["sharded_fold_to_root"], max_abs_err=full20["err"], ms=full20["ms"],
+        plain_ms=full20["plain_ms"], bound_ms=full20["bound_ms"], bound_by=full20["bound_by"],
+        library_ms=None)
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

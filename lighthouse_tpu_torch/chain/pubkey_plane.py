@@ -8,13 +8,17 @@ in one call.  Rungs (routing as in the JAX package):
 - ``device``: row 11 (``ops/pubkey_kernels.gather_fold``) over the
   resident table, taken at ``LHGPU_PUBKEY_DEVICE_MIN`` lanes or more
   (default 256) when the plane's device is the card;
+- ``sharded``: the same fold with the groups split over every visible card
+  (``parallel/msm_sharded.py``), taken instead of ``device`` when more
+  than one card is visible;
 - ``reference``: the scalar-sum collapse per (group, pubkey), then one
   native segment MSM on the host (``g1_lincomb_groups``).
 
-``LHGPU_PUBKEY_BACKEND=device|reference`` forces a rung (tests, the smoke
-run).  A device fault RAISES: the JAX package's recovery onto the reference
-rung and its breaker are not ported (the supervisor, ROADMAP A 5a, is the
-only place a recovery may live).
+``LHGPU_PUBKEY_BACKEND=device|sharded|reference`` forces a rung (tests, the
+smoke run; ``sharded`` on a CPU plane is a mesh of the CPU alone).  A
+device fault RAISES: the JAX package's recovery onto the reference rung
+and its breaker are not ported (the supervisor, ROADMAP A 5a, is the only
+place a recovery may live).
 
 Table discipline: validator pubkeys are append-only and immutable per
 index, so a table covering rows [0, T) stays valid for any registry grown
@@ -34,6 +38,7 @@ import os
 import threading
 
 import numpy as np
+import torch
 
 from lighthouse_tpu_torch.crypto.bls import api as bls
 from lighthouse_tpu_torch.crypto.bls.fields import R as _R
@@ -41,7 +46,7 @@ from lighthouse_tpu_torch.device import resolve_device
 from lighthouse_tpu_torch.ops import bigint as bi
 from lighthouse_tpu_torch.ops import native_bls, pubkey_kernels
 
-_RUNGS = ("device", "reference")
+_RUNGS = ("device", "sharded", "reference")
 _DEVICE_MIN_DEFAULT = 256
 
 
@@ -61,7 +66,7 @@ class PubkeyPlane:
         self._prefix_sha = b""          # sha256 of the pubkey rows [0, table_rows)
         self._seen: dict[int, object] = {}    # verified registries, id -> strong ref
         self.refreshes = {"append": 0, "rebuild": 0}
-        self.folds = {"device": 0, "reference": 0}
+        self.folds = {"device": 0, "reference": 0}     # a rung's key on its first fold
 
     @property
     def device(self):
@@ -73,7 +78,8 @@ class PubkeyPlane:
 
     def resolve_rung(self, n_lanes: int) -> str:
         """Which rung folds an ``n_lanes`` batch: a forced rung first, then
-        the device rung on the card at ``device_min()`` lanes or more."""
+        at ``device_min()`` lanes or more on the card the sharded rung when
+        more than one card is visible, else the device rung."""
         forced = os.environ.get("LHGPU_PUBKEY_BACKEND")
         if forced:
             if forced not in _RUNGS:
@@ -81,7 +87,7 @@ class PubkeyPlane:
             return forced
         if n_lanes < max(device_min(), 1) or self.device.type != "cuda":
             return "reference"
-        return "device"
+        return "sharded" if torch.cuda.device_count() > 1 else "device"
 
     # -- the table --------------------------------------------------------------
 
@@ -152,18 +158,26 @@ class PubkeyPlane:
         scalars[i]·pubkey(indices[i]) as affine int points, None for an
         identity aggregate (such a merged set can never verify)."""
         rung = self.resolve_rung(len(indices))
-        self.folds[rung] += 1
-        if rung == "device":
-            return self._fold_device(validators, indices, scalars, groups, n_groups)
+        self.folds[rung] = self.folds.get(rung, 0) + 1
+        if rung != "reference":
+            return self._fold_device(validators, indices, scalars, groups, n_groups,
+                                     sharded=rung == "sharded")
         return self._fold_host(validators, indices, scalars, groups, n_groups)
 
-    def _fold_device(self, validators, indices, scalars, groups, n_groups: int) -> list:
+    def _fold_device(self, validators, indices, scalars, groups, n_groups: int, *,
+                     sharded: bool) -> list:
         self.ensure_table(validators)
         with self._lock:
             table = self._table         # tables only grow: one read is consistent
-        xa, ya, inf = pubkey_kernels.gather_fold(table, np.asarray(indices, np.int64),
-                                                 np.asarray(scalars, np.uint64),
-                                                 np.asarray(groups, np.int64), n_groups)
+        args = (table, np.asarray(indices, np.int64), np.asarray(scalars, np.uint64),
+                np.asarray(groups, np.int64), n_groups)
+        if sharded:
+            from lighthouse_tpu_torch.parallel import mesh, msm_sharded
+
+            xa, ya, inf = msm_sharded.gather_fold_sharded(
+                *args, mesh=mesh.rung_mesh(self.device))
+        else:
+            xa, ya, inf = pubkey_kernels.gather_fold(*args)
         xs, ys = bi.mont_limbs_to_ints(xa), bi.mont_limbs_to_ints(ya)
         return [None if inf[g] else (xs[g], ys[g]) for g in range(n_groups)]
 
@@ -204,5 +218,5 @@ def notify_registry(validators) -> None:
     """Registry write-back hook: refresh the table eagerly when the device
     rung is armed for a full batch."""
     plane = get_plane()
-    if plane.resolve_rung(device_min()) == "device":
+    if plane.resolve_rung(device_min()) != "reference":
         plane.ensure_table(validators)

@@ -3,7 +3,8 @@
 Port of ``lighthouse_tpu/crypto/bls/api.py``: key and signature types,
 ``SignatureSet``, ``verify``, the pure-Python ``reference`` backend, and
 ``verify_signature_sets`` over named backends.  The ``cuda`` backend
-(``ops/bls_backend.py``) registers itself when first asked for.
+(``ops/bls_backend.py``) and the ``sharded`` backend over a device mesh
+(``parallel/bls_sharded.py``) register themselves when first asked for.
 
 There is no supervisor in the port: ``verify_signature_sets`` calls the
 named backend directly, and a device fault raises instead of recovering
@@ -340,8 +341,9 @@ def register_backend(name: str, fn: Callable[..., bool]) -> None:
 
 
 def _resolve_backend(name: str) -> Callable[..., bool]:
-    if name == "cuda" and name not in _BACKENDS:
-        importlib.import_module("lighthouse_tpu_torch.ops.bls_backend")
+    if name in ("cuda", "sharded") and name not in _BACKENDS:
+        importlib.import_module("lighthouse_tpu_torch.ops.bls_backend" if name == "cuda"
+                                else "lighthouse_tpu_torch.parallel.bls_sharded")
     try:
         return _BACKENDS[name]
     except KeyError:
@@ -353,11 +355,13 @@ def verify_signature_sets(sets: Sequence[SignatureSet], *, backend: str = "cuda"
     """Batch-verify signature sets on the named backend, the card's
     (``cuda``) unless another is named.
 
-    ``chunk_size`` tunes the chunked pipeline of the ``cuda`` backend (None:
-    LHGPU_BLS_CHUNK or the default; 0: one chunk).  ``device`` is passed to
-    the ``cuda`` backend: ``cuda`` unless ``"cpu"`` is given, and without a
-    card the call raises.  ``reference`` is the pure-Python host check.  No
-    supervisor: the backend is called directly and its faults raise."""
+    ``chunk_size`` tunes the chunked pipeline of the ``cuda`` and ``sharded``
+    backends (None: LHGPU_BLS_CHUNK or the default; 0: one chunk).
+    ``device`` is passed to the backend: ``cuda`` unless ``"cpu"`` is given,
+    and without a card the call raises (``sharded``: every visible card,
+    or a mesh of that one device).  ``reference`` is the pure-Python host
+    check.  No supervisor: the backend is called directly and its faults
+    raise."""
     fn = _resolve_backend(backend)
     kwargs = {} if chunk_size is None else {"chunk_size": chunk_size}
     if device is not None:

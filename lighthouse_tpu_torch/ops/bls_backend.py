@@ -77,6 +77,33 @@ def _nonzero_scalar(bits: int = RAND_BITS) -> int:
     return r
 
 
+def prepare_pairs(sets: Sequence[api.SignatureSet], scalars=None):
+    """Host-only prep of the multi-pairing: [(r_i·agg_pk_i, H(m_i))] per set
+    and the (-g1, Σ r_i·sig_i) pair, every multiplication in Python
+    (``crypto/bls/curve.py``), each signature's subgroup check with its
+    decompression.  None if any set is structurally invalid.  The pairs of
+    the sharded backend (``parallel/bls_sharded.py``); ``scalars`` (tests
+    only) replaces the random r_i.  Counterpart of
+    ``lighthouse_tpu/ops/bls_backend.py:92``."""
+    pairs = []
+    sig_acc = cv.INF
+    for i, s in enumerate(sets):
+        if not s.pubkeys:
+            return None
+        try:
+            sig_pt = s.signature.point
+            agg_pk = s.aggregate_pubkey()
+        except (api.BlsError, ValueError):
+            return None
+        if sig_pt is cv.INF:
+            return None
+        r = _nonzero_scalar() if scalars is None else scalars[i]
+        sig_acc = cv.g2_add(sig_acc, cv.g2_mul(sig_pt, r))
+        pairs.append((cv.g1_mul(agg_pk, r), _hash_to_g2_cached(s.message)))
+    pairs.append((cv.g1_neg(cv.g1_generator()), sig_acc))
+    return pairs
+
+
 # --------------------------------------------------------------------------
 # lh_bls_pipeline: plain version and kernel wrapper
 # --------------------------------------------------------------------------

@@ -22,6 +22,7 @@ Differences from the JAX package, on purpose:
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -134,11 +135,46 @@ def build_params(state, spec: ChainSpec, *, leak: bool) -> np.ndarray:
     return params
 
 
+#: the epoch pass's rungs: one device, or the rows split over a mesh
+#: (``parallel/epoch_sharded.py``)
+EPOCH_BACKENDS = ("device", "sharded")
+
+
+def epoch_backend(device: torch.device) -> str:
+    """The rung that runs the pass on ``device``: ``LHGPU_EPOCH_BACKEND``
+    (``device`` or ``sharded``; another value raises) when set, else
+    ``sharded`` when more than one card is visible and the pass runs on a
+    card, else ``device``.  Counterpart of ``LHTPU_EPOCH_BACKEND`` and the
+    auto choice of ``lighthouse_tpu/state_transition/epoch_processing.py``
+    (:195-211)."""
+    forced = os.environ.get("LHGPU_EPOCH_BACKEND")
+    if forced:
+        if forced not in EPOCH_BACKENDS:
+            raise ValueError(f"LHGPU_EPOCH_BACKEND={forced!r}: use one of {EPOCH_BACKENDS}")
+        return forced
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        return "sharded"
+    return "device"
+
+
+def epoch_pass(columns: dict, tables: dict, params: np.ndarray, device: torch.device
+               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One upload, one ``fused_epoch_pass`` launch on ``device`` and one
+    fetch of its outputs: host columns (``build_columns``), tables and
+    params in, host int64 (scores, balances, effective balances) out."""
+    ins = [torch.from_numpy(columns[c]).to(device) for c in COLUMNS]
+    ins += [torch.from_numpy(a).to(device) for a in (tables["reward"], tables["penalty"],
+                                                     tables["slash"], params)]
+    return tuple(t.cpu().numpy() for t in ek.fused_epoch_pass(*ins))
+
+
 def prepare_and_run(state, spec: ChainSpec, device: torch.device) -> tuple[np.ndarray, dict]:
-    """Tables and columns on the host, one upload, one ``fused_epoch_pass``
-    launch on ``device``, one fetch of its three outputs, then the apply:
-    scores and balances are written to ``state`` only after every output
-    has arrived.  Returns the effective balances, deferred until after the
+    """Tables and columns on the host, then the pass on the rung
+    ``epoch_backend`` picks (``epoch_pass`` on ``device``, or
+    ``epoch_pass_sharded`` over every visible card; over a mesh of
+    ``device`` alone when that is the CPU), then the apply: scores and
+    balances are written to ``state`` only after every output has
+    arrived.  Returns the effective balances, deferred until after the
     registry updates, and the host stage times.  The caller has run
     ``check_int64_lanes``."""
     from lighthouse_tpu_torch.state_transition import epoch_processing as ep
@@ -149,10 +185,13 @@ def prepare_and_run(state, spec: ChainSpec, device: torch.device) -> tuple[np.nd
     columns = build_columns(state, spec)
     params = build_params(state, spec, leak=leak)
     t1 = time.perf_counter()
-    ins = [torch.from_numpy(columns[c]).to(device) for c in COLUMNS]
-    ins += [torch.from_numpy(a).to(device) for a in (tables["reward"], tables["penalty"],
-                                                     tables["slash"], params)]
-    sc, bal, eff = (t.cpu().numpy() for t in ek.fused_epoch_pass(*ins))
+    if epoch_backend(device) == "sharded":
+        from lighthouse_tpu_torch.parallel.epoch_sharded import epoch_pass_sharded
+        from lighthouse_tpu_torch.parallel.mesh import rung_mesh
+
+        sc, bal, eff = epoch_pass_sharded(columns, tables, params, mesh=rung_mesh(device))
+    else:
+        sc, bal, eff = epoch_pass(columns, tables, params, device)
     t2 = time.perf_counter()
     state.inactivity_scores = sc.astype(np.uint64)
     state.balances = bal.astype(np.uint64)
