@@ -1,0 +1,148 @@
+#!/usr/bin/env python3
+"""Time the blinded pubkey fold (row 8) and the barycentric evaluation
+(row 15) of two checkouts of the port on one card, in turns.
+
+    python3 chip_ab.py OLD_TREE NEW_TREE
+
+Each tree is the root of a checkout (``git archive`` of a commit unpacked
+anywhere); its ``lighthouse_tpu_torch`` is imported and built in a process
+of its own, in the order OLD, NEW, NEW, OLD, so that both are measured on
+the same card and a drift shows as a difference between a tree's two
+runs.  Each run prints one JSON line: the card's name and power limit, and
+CUDA-event means at the main path's shapes (``chip_smoke.py``'s seeds):
+
+- row 8 at the block batch (131 sets, 262,144 lanes in 256 segments): the
+  whole call, its launches a call, and each launch timed alone (a tree
+  launch by its half, then the final launch);
+- row 15 at 768 blobs of width 4096 (one challenge on the domain) and at
+  1, 132 and 264 blobs: one blob is one block's critical path, 264 fill
+  two blocks an SM once.
+
+Both kernels are first held to their plain versions (tolerance 0).  Exits
+non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+BLS_SEED = 20240314          # chip_smoke.py's block batch
+KZG_SEED = 11                # chip_smoke.py's 768-blob batch
+KZG_WIDTH = 4096
+KZG_BLOBS = 768
+
+
+def one(tree: str) -> dict:
+    root = os.path.abspath(tree)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import lighthouse_tpu_torch
+    from lighthouse_tpu_torch import testing as T
+    from lighthouse_tpu_torch.crypto import kzg
+    from lighthouse_tpu_torch.ops import bigint as bi
+    from lighthouse_tpu_torch.ops import bls_backend as bb
+    from lighthouse_tpu_torch.ops import bls_cuda, fr, msm
+
+    if not lighthouse_tpu_torch.__file__.startswith(root):
+        raise SystemExit(f"imported {lighthouse_tpu_torch.__file__}, not the tree {root}")
+    dev = torch.device("cuda")
+
+    def ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    out = {"tree": tree}
+    X, Y, Z, ux, uy, n_seg = bb.fold_lanes(T.block_signature_sets(BLS_SEED))
+    args = [bi.to_tensor(a, dev) for a in (X, Y, Z, ux, uy)]
+    got, want = msm.blinded_fold_device(*args, n_seg), msm.blinded_fold_plain(*args, n_seg)
+    if not all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want)):
+        raise SystemExit("row 8 disagrees with its plain version")
+    before = msm.blinded_fold_device.launches
+    out["row8_ms"] = ms(lambda: msm.blinded_fold_device(*args, n_seg), 20)
+    out["row8_launches_a_call"] = (msm.blinded_fold_device.launches - before) / 21
+    # the tree's launch plan: a checkout without blinded_fold_plan ran the
+    # tree down to one row a segment and took no row count in its final launch
+    total = X.shape[0]
+    if hasattr(msm, "blinded_fold_plan"):
+        halves, rows = msm.blinded_fold_plan(total, n_seg)
+        final = (n_seg, rows)
+    else:
+        halves = [total >> k for k in range(1, (total // n_seg).bit_length())]
+        final = (n_seg,)
+    split = np.zeros(len(halves) + 1)
+    for rep in range(21):
+        Xc, Yc, Zc = (a.clone() for a in args[:3])
+        xa = torch.empty((n_seg, 12), dtype=torch.int32, device=dev)
+        ya = torch.empty_like(xa)
+        inf = torch.empty(n_seg, dtype=torch.uint8, device=dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(halves) + 2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for k, half in enumerate(halves):
+            bls_cuda.launch("lh_g1_add_halves", Xc, Yc, Zc, half)
+            ev[k + 1].record()
+        bls_cuda.launch("lh_blinded_final", Xc, Yc, Zc, args[3], args[4], xa, ya, inf, *final)
+        ev[-1].record()
+        torch.cuda.synchronize()
+        if rep:
+            split += [ev[k].elapsed_time(ev[k + 1]) for k in range(len(ev) - 1)]
+    out["row8_split_ms"] = dict(zip([f"half {h}" for h in halves] + ["final"],
+                                    (split / 20).tolist()))
+
+    R = fr.R_INT
+    rng = np.random.default_rng(KZG_SEED)
+    n, w = KZG_BLOBS, KZG_WIDTH
+    raw = rng.integers(0, 256, (n, w, 32), dtype=np.uint8)
+    raw[..., 0] &= 0x3F
+    roots = kzg._bit_reversal_permutation(kzg._compute_roots_of_unity(w))
+    zs = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(n)]
+    zs[5] = roots[77 % w]
+    f_m = fr.fr_to_mont_device(torch.from_numpy(raw).to(dev))
+    z_t = bi.to_tensor(fr.to_mont_host(zs), dev)
+    roots_t = bi.to_tensor(fr.to_mont_host(roots), dev)
+    invw_t = bi.to_tensor(fr.to_mont_host([pow(w, -1, R)]), dev)
+    if not torch.equal(fr.eval_device(f_m, z_t, roots_t, invw_t).cpu(),
+                       fr.eval_plain(f_m, z_t, roots_t, invw_t).cpu()):
+        raise SystemExit("row 15 disagrees with its plain version")
+    out["row15_ms"] = {str(k): ms(lambda: fr.eval_device(f_m[:k], z_t[:k], roots_t, invw_t), 10)
+                       for k in (n, 1, 132, 264)}
+    out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                  "--format=csv,noheader"], capture_output=True, text=True,
+                                 check=True).stdout.strip()
+    return out
+
+
+def main(argv: list) -> int:
+    if len(argv) == 3 and argv[1] == "--one":
+        print(json.dumps(one(argv[2])), flush=True)
+        return 0
+    if len(argv) != 3:
+        print(__doc__.split("\n\n")[1], file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    old, new = argv[1:]
+    for tree in (old, new, new, old):
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree]).returncode
+        if rc:
+            return rc
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -27,7 +27,8 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    and one more slot profiled for where its time goes.
 5. The BLS build report: seconds of each build.
 6. Each BLS12-381 kernel's ptxas line (stack frame, spills, registers,
-   stack, static shared memory; a group kernel that spills fails the run),
+   stack, static shared memory; a group kernel that spills fails the run,
+   and so does a stack frame or spill in the blinded fold's tail),
    the group kernels' widths and dynamic shared memory and their tapes'
    levels, products, rounds and rows (the ψ check's doubling, mixed add
    and tail among them), the Fp product's cycles in a chain of one
@@ -37,11 +38,13 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    lanes and the 1k batch's grouped 512 lanes, the ψ subgroup check at 256
    and 1024 lanes with a point outside G2 and a point of order 13 (both
    must read False; the ψ check's time also as cycles of a lane per tape
-   level and per row), the blinded pubkey fold at 262,144 lanes and the
-   chunk-partial Fq12 product.  Times every kernel and plain version with
-   CUDA events.  Then edge batches, compared only: the pipeline at one
-   lane, with every Miller lane masked and with every scalar zero, an
-   Fq12 product with a factor of one, and the ψ check at 3 lanes.
+   level and per row), the blinded pubkey fold at 262,144 lanes (also
+   each of its launches timed alone) and the chunk-partial Fq12 product.
+   Times every kernel and plain version with CUDA events.  Then edge
+   batches, compared only: the pipeline at one lane, with every Miller
+   lane masked and with every scalar zero, an Fq12 product with a factor
+   of one, the ψ check at 3 lanes, and the blinded fold at the 1k-set
+   microbench's segments of 2 rows.
 7. The BLS main path: ``verify_signature_sets(backend="cuda")`` on the 1k-set
    microbench and on the 131 sets of one mainnet block at 2^20 validators,
    each cold once, then timed with fresh signatures (decompression and the
@@ -76,8 +79,9 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     in one segment and interleaved in two, the fused check over its 4096
     lanes, and the Miller product of 2 pairs padded to 4 lanes; first the
     ptxas lines of the path's kernels (a group kernel that spills fails the
-    run), last edge batches, compared only: the fold at one lane and with
-    every scalar zero.
+    run, and so does a stack frame or spill in ``k_fr_eval``) and the
+    evaluation's blocks resident an SM; last edge batches, compared only:
+    the fold at one lane and with every scalar zero.
 11. The KZG main path (BASELINE config 5, as the JAX package's
     ``bench.py`` builds it): ``KzgSettings.dev(4096)``, the 6 unique blobs'
     commitments and proofs (checked against p(τ), q(τ) and the host
@@ -498,8 +502,8 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def bound(fp_muls: int, nbytes: int) -> tuple[float, str]:
-        ops_ms = fp_muls * bls_cuda.IMADS_PER_FP_MUL / imad_per_s * 1e3
+    def bound(imads: int, nbytes: int) -> tuple[float, str]:
+        ops_ms = imads / imad_per_s * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -539,6 +543,7 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
         return bb._chunk_layout(sets, sig_pts, h2, px, py, scalars, dev)
 
     cases = []
+    fp = bls_cuda.IMADS_PER_FP_MUL
     for name, sets in (("block", block), ("1k chunk", micro[:512])):
         args = layout(sets)
         n, m, groups = args[0].shape[0], args[4].shape[0], args[-1]
@@ -546,7 +551,7 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
         nbytes = n * (2 * 48 + 2 * 96 + 16 * 4) + m * (2 * 96 + 1) + 2 * 48 + 576
         cases.append((f"pipeline [{name}: {n} lanes, {groups or 'flat'} groups, {m + 1} Miller]",
                       "bls_pipeline", bb.pipeline_device, bb.pipeline_plain, args,
-                      fp_muls, nbytes, "lighthouse_tpu/ops/bls_backend.py:124", 3))
+                      fp_muls * fp, nbytes, "lighthouse_tpu/ops/bls_backend.py:124", 3))
     for name, sets in (("block", block), ("1k", micro)):
         pts = [s.signature.point for s in sets]
         pts += [cv.g2_generator()] * (msm.bucket(len(pts), floor=4) - len(pts))
@@ -554,21 +559,23 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
         xq, yq = ec.g2_words(pts, dev)
         cases.append((f"g2_subgroup [{name}: {len(pts)} lanes]", "g2_subgroup",
                       bb.g2_subgroup_device, bb.g2_subgroup_plain, (xq, yq),
-                      len(pts) * bls_cuda.PSI_LANE, len(pts) * (192 + 1),
+                      len(pts) * bls_cuda.PSI_LANE * fp, len(pts) * (192 + 1),
                       "lighthouse_tpu/ops/bls_backend.py:175", 3))
     X, Y, Z, ux, uy, n_pad = bb.fold_lanes(block)
     fold_args = tuple(bi.to_tensor(a, dev) for a in (X, Y, Z, ux, uy)) + (n_pad,)
+    # the bound counts each segment's inversion on the Z its sum has
+    fold_z = bi.to_numpy(msm.blinded_sum_plain(*fold_args)[2])
     cases.append((f"blinded_fold [{X.shape[0]} lanes -> {n_pad} segments]", "blinded_fold",
                   msm.blinded_fold_device, msm.blinded_fold_plain, fold_args,
-                  bls_cuda.blinded_fold_fp_muls(Z.any(axis=1), n_pad),
+                  bls_cuda.blinded_fold_muladds(Z.any(axis=1), fold_z),
                   3 * X.shape[0] * 48 + 96 + n_pad * (96 + 1),
                   "lighthouse_tpu/ops/msm.py:143", 3))
     rows = bi.ints_to_mont_limbs([int(v) % bi.P_INT for v in rng.integers(1, 1 << 62, 24)])
     fa, fb = (bi.to_tensor(rows[k:k + 12].reshape(1, 12, 12), dev) for k in (0, 12))
     cases.append(("fq12_mul [1 lane]", "fq12_mul", dp.fq12_mul_device, dp.fq12_mul_plain,
-                  (fa, fb), bls_cuda.FP12_MUL, 3 * 576,
+                  (fa, fb), bls_cuda.FP12_MUL * fp, 3 * 576,
                   "lighthouse_tpu/ops/dispatch_pipeline.py:162", 20))
-    for label, name, kernel, plain, args, fp_muls, nbytes, replaces, reps in cases:
+    for label, name, kernel, plain, args, imads, nbytes, replaces, reps in cases:
         got = kernel(*args)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -589,9 +596,12 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
             if verdict[:2] != [False, False] or not all(verdict[2:]):
                 raise SystemExit(f"{label}: wrong membership verdicts {verdict[:4]}...")
         ms = cuda_ms(lambda: kernel(*args), reps)
-        bound_ms, bound_by = bound(fp_muls, nbytes)
+        bound_ms, bound_by = bound(imads, nbytes)
         log(f"kernel {label}: == plain (max err {err}); {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}: {fp_muls} Fp products)")
+            f"bound {bound_ms:.4f} ms ({bound_by}: {imads} multiply-adds, {imads / fp:.0f} "
+            f"Fp products' worth)")
+        if name == "blinded_fold":
+            blinded_fold_split(torch, np, bls_cuda, msm, fold_args)
         if name == "g2_subgroup":
             lane_cycles(stats, bls_cuda.PSI_TAPES, bls_cuda.PSI_OTHER_LEVELS, ms, max_mhz,
                         fp_cycles, label)
@@ -626,8 +636,17 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
     torch.cuda.synchronize()
     if got.tolist() != want.tolist() or got.tolist() != [False, True, False]:
         raise SystemExit(f"g2_subgroup [3 lanes]: kernel {got.tolist()}, plain {want.tolist()}")
+    # the blinded fold at the microbench's segments (2 rows: the tail alone)
+    mfold = tuple(bi.to_tensor(a, dev) for a in bb.fold_lanes(micro)[:5])
+    n_micro = msm.bucket(len(micro))
+    for g_, w_ in zip(msm.blinded_fold_device(*mfold, n_micro),
+                      msm.blinded_fold_plain(*mfold, n_micro)):
+        if max_err(g_, w_) != 0:
+            raise SystemExit("blinded_fold [1k sets]: kernel disagrees with its plain version")
     log(f"edge batches == plain ({time.perf_counter() - t_edges:.1f} s): pipeline "
-        f"{[w for w, _ in edges]}; fq12_mul with a factor of one; g2_subgroup at 3 lanes")
+        f"{[w for w, _ in edges]}; fq12_mul with a factor of one; g2_subgroup at 3 lanes; "
+        f"blinded_fold at {mfold[0].shape[0]} lanes in {n_micro} segments "
+        f"(plan {msm.blinded_fold_plan(mfold[0].shape[0], n_micro)})")
 
     # -- 7. the BLS main path ------------------------------------------------
     def verify(sets, **kw):
@@ -723,6 +742,9 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
 # a spill in any of them fails the run.
 GROUP_KERNELS = ("k_gj_scalar_mul", "k_g1_scalar_mul", "k_g1_gather_scalar_mul", "k_miller",
                  "k_fq12_mul_halves", "k_fq12_mul", "k_g2_subgroup", "k_final_exp_hard")
+# Kernels whose values must all stay in registers or shared memory (rows 8
+# and 15's redesign): a stack frame or a spill in either fails the run.
+NO_STACK_KERNELS = ("k_blinded_final", "k_fr_eval")
 BLS_KERNELS = GROUP_KERNELS + ("k_g1_add_halves", "k_g2_add_halves", "k_blinded_final",
                                "k_g1_affine", "k_g1_subgroup", "k_fp_mul_chain")
 
@@ -730,7 +752,8 @@ BLS_KERNELS = GROUP_KERNELS + ("k_g1_add_halves", "k_g2_add_halves", "k_blinded_
 def ptxas_report(native, name: str, kernels) -> None:
     """Log each kernel's ptxas report from the build of csrc/<name>.cu
     (stack frame, spills, registers, barriers, stack, static shared memory);
-    fail the run when a group kernel spills."""
+    fail the run when a group kernel spills or a NO_STACK_KERNELS kernel has
+    a stack frame or spills."""
     rows, fn = {}, None
     for line in native.build_log(name).splitlines():
         if "Function properties for" in line:
@@ -743,11 +766,44 @@ def ptxas_report(native, name: str, kernels) -> None:
         if not hits:
             raise SystemExit(f"ptxas reported nothing for {k} in {name}.cu")
         log(f"  {k}: {'; '.join(hits[0])}")
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", " ".join(hits[0]))
-        if k in GROUP_KERNELS and (m is None or int(m.group(1)) or int(m.group(2))):
+        line = " ".join(hits[0])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        spills = m is None or int(m.group(1)) or int(m.group(2))
+        if k in GROUP_KERNELS and spills:
+            spilled.append(k)
+        frame = re.search(r"(\d+) bytes stack frame", line)
+        if k in NO_STACK_KERNELS and (spills or frame is None or int(frame.group(1))):
             spilled.append(k)
     if spilled:
-        raise SystemExit(f"group kernels spill registers: {spilled}")
+        raise SystemExit(f"kernels spill registers or keep a stack frame: {spilled}")
+
+
+def blinded_fold_split(torch, np, bls_cuda, msm, fold_args) -> None:
+    """Log each launch of one blinded fold (row 8) timed alone with CUDA
+    events, mean of 20: the tree launches by half, then the tail."""
+    X, Y, Z, ux, uy, n_seg = fold_args
+    halves, rows = msm.blinded_fold_plan(X.shape[0], n_seg)
+    acc = np.zeros(len(halves) + 1)
+    for rep in range(21):
+        Xc, Yc, Zc = X.clone(), Y.clone(), Z.clone()
+        xa = torch.empty((n_seg, 12), dtype=torch.int32, device=X.device)
+        ya = torch.empty_like(xa)
+        inf = torch.empty(n_seg, dtype=torch.uint8, device=X.device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(halves) + 2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for k, half in enumerate(halves):
+            bls_cuda.launch("lh_g1_add_halves", Xc, Yc, Zc, half)
+            ev[k + 1].record()
+        bls_cuda.launch("lh_blinded_final", Xc, Yc, Zc, ux, uy, xa, ya, inf, n_seg, rows)
+        ev[-1].record()
+        torch.cuda.synchronize()
+        if rep:                             # the first run warms up
+            acc += [ev[k].elapsed_time(ev[k + 1]) for k in range(len(ev) - 1)]
+    acc /= 20
+    log(f"  blinded_fold per launch (ms, mean of 20): "
+        f"{ {f'half {h}': round(float(t), 4) for h, t in zip(halves, acc)} }, "
+        f"tail of {rows} rows a segment {acc[-1]:.4f}; sum {acc.sum():.4f}")
 
 
 def fp_mul_cycles(torch, np, dev, bls_cuda, bi, max_mhz: float) -> float:
@@ -1129,6 +1185,10 @@ def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> tuple:
     ptxas_report(native, "kzg", ("k_fr_to_mont", "k_fr_eval"))
     ptxas_report(native, "bls12_381", ("k_g1_scalar_mul", "k_g1_add_halves", "k_miller",
                                        "k_fq12_mul_halves"))
+    threads, chunk = fr.eval_threads(KZG_WIDTH)
+    log(f"  k_fr_eval at W = {KZG_WIDTH}: {threads} threads of {chunk} points, "
+        f"{fr.eval_blocks_per_sm(KZG_WIDTH)} blocks resident an SM "
+        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     props = torch.cuda.get_device_properties(0)
     imad_per_s = props.multi_processor_count * IMAD_LANES_PER_SM * max_mhz * 1e6
 
@@ -1188,7 +1248,7 @@ def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> tuple:
          (raw_t,), n * w * frm, n * w * 64, "lighthouse_tpu_torch/csrc/kzg.cu",
          "lighthouse_tpu/ops/fr.py:332", 10),
         ("fr_eval", f"fr_eval [{n} x {w}, one challenge on the domain]", fr.eval_device,
-         fr.eval_plain, (f_m, z_t, roots_t, invw_t), fr.eval_fr_muls(n, w) * frm,
+         fr.eval_plain, (f_m, z_t, roots_t, invw_t), fr.eval_muladds(zs, w),
          n * w * 32 + w * 32 + 32 + n * 64, "lighthouse_tpu_torch/csrc/kzg.cu",
          "lighthouse_tpu/ops/fr.py:297", 10),
         ("g1_fold", f"g1_fold [{lanes} lanes, 1 segment]", msm.fold_device, msm.fold_plain,

@@ -55,7 +55,13 @@
 // after its lanes' workspaces.  The G1 membership check and the segment,
 // G2 and affine steps run one thread a lane, with the same register-held
 // Fp product; the trees launch once per level, each thread or group
-// combining rows i and i + half in place.  Each launcher returns
+// combining rows i and i + half in place.  The blinded fold's tree stops
+// at 32 rows a segment: its tail (k_blinded_final) folds them a warp a
+// segment in shared memory, 8 groups of 4 threads over the G1 add's tape,
+// adds the blinding total and inverts Z by divsteps (csrc/modinv.cuh:
+// about 4,300 multiply-adds in batches of independent limb products,
+// where Fermat's a^(p-2) was a chain of 610 dependent Fp products on one
+// thread).  Each launcher returns
 // cudaGetLastError() of its launch, or the error of the tapes' copy.
 
 #include <cuda_runtime.h>
@@ -217,10 +223,24 @@ __global__ void k_g2_subgroup(long n, const u32* xq, const u32* yq, uint8_t* out
     if (i < n) lane_g2_subgroup<PSI_W>(g, tv, lh_smem + lane * PSI_WS, i, xq, yq, out);
 }
 
-__global__ void k_blinded_final(long n, const u32* X, const u32* Y, const u32* Z,
-                                const u32* ux, const u32* uy, u32* xa, u32* ya, uint8_t* inf) {
-    long g = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g < n) lane_blinded_final(g, X, Y, Z, ux, uy, xa, ya, inf);
+// the blinded fold's tail: a warp a segment, 8 groups over the G1 add's
+// tape (bls12_381.cuh blinded_tail_*)
+__global__ void k_blinded_final(long n_seg, int n_rows, const u32* X, const u32* Y, const u32* Z,
+                                const u32* ux, const u32* uy, u32* xa, u32* ya, uint8_t* inf,
+                                Span sp) {
+    const TapeView tv = stage(sp, lh_smem + TAIL_WS);
+    Fp* ws = lh_smem;
+    int j;
+    Grp g = group<G1_W>(j);
+    const long seg = blockIdx.x;
+    blinded_tail_load(ws, threadIdx.x, n_rows, seg, n_seg, X, Y, Z);
+    for (int h = n_rows; h >= 1; h >>= 1) {
+        if (h == 1) blinded_tail_blind(ws, threadIdx.x, ux, uy);
+        __syncwarp();
+        blinded_tail_step<G1_W>(g, tv, ws, j, h);
+        __syncwarp();
+    }
+    if (threadIdx.x == 0) blinded_tail_out(ws, seg, xa, ya, inf);
 }
 
 __global__ void k_final_exp_hard(long n, const u32* in, u32* out, Span sp) {
@@ -235,18 +255,20 @@ inline cudaStream_t S(void* s) { return reinterpret_cast<cudaStream_t>(s); }
 
 // the group kernels' lanes' workspaces in a warp-sized block, and the tapes
 // each stages after them
-enum GroupKernel { GK_GJ, GK_G1, GK_MILLER, GK_FQ12, GK_FE, GK_PSI, N_GK };
+enum GroupKernel { GK_GJ, GK_G1, GK_MILLER, GK_FQ12, GK_FE, GK_PSI, GK_TAIL, N_GK };
 constexpr size_t kWorkspace[N_GK] = {
     (32 / GJ_W) * GJ_WS * sizeof(Fp),         (32 / G1_W) * G1_WS * sizeof(Fp),
     (32 / MILLER_W) * MILLER_WS * sizeof(Fp), (32 / FQ12_W) * FQ12_WS * sizeof(Fp),
-    (32 / FE_W) * FE_WS * sizeof(Fp),         (32 / PSI_W) * PSI_WS * sizeof(Fp)};
+    (32 / FE_W) * FE_WS * sizeof(Fp),         (32 / PSI_W) * PSI_WS * sizeof(Fp),
+    TAIL_WS * sizeof(Fp)};
 // each kernel's tapes: a range of TapeId
 constexpr int kTapesOf[N_GK][2] = {{TAPE_G1_ADD, TAPE_G1G2_ADD},
                                    {TAPE_G1_DBL, TAPE_G1_ADD},
                                    {TAPE_MILLER_SETUP, TAPE_MILLER_ADD},
                                    {TAPE_FQ12_MUL, TAPE_FQ12_MUL},
                                    {TAPE_FQ12_MUL, TAPE_FROB3},
-                                   {TAPE_PSI_DBL, TAPE_PSI_TAIL}};
+                                   {TAPE_PSI_DBL, TAPE_PSI_TAIL},
+                                   {TAPE_G1_ADD, TAPE_G1_ADD}};
 Span spans[N_GK];
 
 inline size_t smem_of(int k) {
@@ -282,7 +304,8 @@ int ensure_tapes(cudaStream_t s) {
         (e = allow_smem(k_fq12_mul_halves, smem_of(GK_FQ12))) != cudaSuccess ||
         (e = allow_smem(k_fq12_mul, smem_of(GK_FQ12))) != cudaSuccess ||
         (e = allow_smem(k_final_exp_hard, smem_of(GK_FE))) != cudaSuccess ||
-        (e = allow_smem(k_g2_subgroup, smem_of(GK_PSI))) != cudaSuccess)
+        (e = allow_smem(k_g2_subgroup, smem_of(GK_PSI))) != cudaSuccess ||
+        (e = allow_smem(k_blinded_final, smem_of(GK_TAIL))) != cudaSuccess)
         return (int)e;
     tapes_on[dev] = true;
     return 0;
@@ -373,9 +396,16 @@ int lh_g2_subgroup(const u32* xq, const u32* yq, uint8_t* out, long long n, void
     return (int)cudaGetLastError();
 }
 
+// Jacobian rows X, Y, Z holding `rows` partial sums a segment (a power of
+// two up to BLINDED_TAIL_ROWS), s-major over n segments, and the blinding
+// total (ux, uy) -> affine xa, ya [n, 12] and inf [n]; a warp a segment
 int lh_blinded_final(const u32* X, const u32* Y, const u32* Z, const u32* ux, const u32* uy,
-                     u32* xa, u32* ya, uint8_t* inf, long long n, void* stream) {
-    k_blinded_final<<<blocks(n), kBlock, 0, S(stream)>>>(n, X, Y, Z, ux, uy, xa, ya, inf);
+                     u32* xa, u32* ya, uint8_t* inf, long long n, long long rows, void* stream) {
+    if (rows < 1 || rows > BLINDED_TAIL_ROWS || (rows & (rows - 1)))
+        return (int)cudaErrorInvalidValue;
+    if (int rc = ensure_tapes(S(stream))) return rc;
+    k_blinded_final<<<(unsigned)n, 32, smem_of(GK_TAIL), S(stream)>>>(
+        n, (int)rows, X, Y, Z, ux, uy, xa, ya, inf, spans[GK_TAIL]);
     return (int)cudaGetLastError();
 }
 

@@ -45,6 +45,8 @@
 #pragma once
 #include <cstdint>
 
+#include "modinv.cuh"
+
 #ifndef __CUDACC__
 #include <algorithm>
 #include <vector>
@@ -93,6 +95,15 @@ __constant__ u32 RM1_W[8] = {
     0x00000000u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u, 0x09a1d805u, 0x3339d808u,
     0x299d7d48u, 0x73eda753u};
 #define BLS_RM1_BITS 255
+// p in signed 30-bit limbs and p^-1 mod 2^30 (csrc/modinv.cuh), and R^3 mod
+// p: a Montgomery product by it turns (aR)^-1 into a^-1 R
+__constant__ int32_t P30[13] = {
+    0x3fffaaab, 0x27fbffff, 0x153ffffb, 0x2affffac, 0x30f6241e, 0x034a83da, 0x112bf673,
+    0x12e13ce1, 0x2cd76477, 0x1ed90d2e, 0x29a4b1ba, 0x3a8e5ff9, 0x001a0111};
+#define P_INV30 0x30003u
+__constant__ u32 R3_W[12] = {
+    0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu, 0x615e29ddu, 0x9a53352au,
+    0x921e1761u, 0x34c04e5eu, 0x65724728u, 0x2512d435u, 0x91755d4du, 0x0aa63460u};
 
 // Host builds may count Fp multiplications (the CPU tests check the counts
 // that bound the kernels' times against this code).
@@ -1542,6 +1553,16 @@ __device__ __noinline__ void fp_inv(Fp& r, const Fp& a) {
     r = out;
 }
 
+// a^-1 (0 -> 0) by the divstep inversion (csrc/modinv.cuh) of aR, then
+// the Montgomery product by R^3
+__device__ __forceinline__ void fp_inv_var(Fp& r, const Fp& a) {
+    Fp t, r3;
+    modinv::inv_var<13, 12>(t.w, a.w, P30, P_INV30);
+#pragma unroll
+    for (int k = 0; k < 12; k++) r3.w[k] = R3_W[k];
+    fp_mul(r, t, r3);
+}
+
 // Jacobian p -> affine row g of (xa, ya) and its infinity flag; an infinity
 // row (Z == 0, whose inverse is 0) comes out as zeros
 __device__ __forceinline__ void g1_affine_out(long g, const Jac<Fp>& p, u32* xa, u32* ya,
@@ -1557,19 +1578,77 @@ __device__ __forceinline__ void g1_affine_out(long g, const Jac<Fp>& p, u32* xa,
     inf[g] = fp_is_zero(p.Z);
 }
 
-// segment g of the blinded fold after its tree: add the known blinding
-// total -U = (ux, uy, 1), convert to affine, flag infinity
-// (msm._blinded_fold)
-__device__ __forceinline__ void lane_blinded_final(long g, const u32* X, const u32* Y,
-                                                   const u32* Z, const u32* ux, const u32* uy,
-                                                   u32* xa, u32* ya, uint8_t* inf) {
-    Jac<Fp> p, u;
-    ld(p, X, Y, Z, g);
-    ld(u.X, ux, 0);
-    ld(u.Y, uy, 0);
-    fp_one(u.Z);
-    jac_add_full(p, p, u, -1, -1);
-    g1_affine_out(g, p, xa, ya, inf);
+// ---- the blinded fold's tail (msm._blinded_fold): a warp a segment ---------
+//
+// The tree launches leave n_rows <= BLINDED_TAIL_ROWS partial sums a segment
+// (s-major: row s of segment g at s * n_seg + g).  One warp loads them into
+// its workspace (row s at slots 3s .. 3s + 2) and folds them as 8 groups of
+// G1_W threads over the G1 add's tape: at the step where h rows remain,
+// add a < h/2 (group a % 8) combines rows a and a + h/2 as lane_add_halves
+// does, with the same infinity skips, so every value equals the plain
+// tree's; the last step (h = 1) adds the known blinding total -U =
+// (ux, uy, 1), put in row 1, to row 0.  Thread 0 then inverts Z by divsteps
+// and runs the 4 affine products in a loop over workspace slots.  The
+// products go through three copies of the register-held code (run_op's,
+// fp_inv_var's and the loop's), which keeps the kernel small enough for the
+// instruction cache (an inlined add's 16 copies were not), and no value
+// goes through a call's stack.
+
+#define BLINDED_TAIL_ROWS 32
+#define TAIL_GROUPS (32 / G1_W)
+#define TAIL_TMP (3 * BLINDED_TAIL_ROWS)            // each group's G1_TEMPS after the rows
+#define TAIL_WS (TAIL_TMP + TAIL_GROUPS * G1_TEMPS)
+
+// the affine step's products after the inversion, (dst, a, b) over slots
+// (X = 0, Y = 1; T = TAIL_TMP holds Z^-1): Z^-2, x = X Z^-2, Z^-3, y = Y Z^-3
+__constant__ uint8_t TAIL_AFFINE[4][3] = {{TAIL_TMP + 1, TAIL_TMP, TAIL_TMP},
+                                          {TAIL_TMP + 2, 0, TAIL_TMP + 1},
+                                          {TAIL_TMP + 3, TAIL_TMP + 1, TAIL_TMP},
+                                          {TAIL_TMP + 4, 1, TAIL_TMP + 3}};
+
+// thread t of the warp's part of loading the segment's rows
+__device__ __forceinline__ void blinded_tail_load(Fp* ws, int t, int n_rows, long g, long n_seg,
+                                                  const u32* X, const u32* Y, const u32* Z) {
+    for (int k = t; k < n_rows * 36; k += 32) {
+        const int s = k / 36, c = k / 12 % 3, q = k % 12;
+        ws[3 * s + c].w[q] = (c == 0 ? X : c == 1 ? Y : Z)[(s * n_seg + g) * 12 + q];
+    }
+}
+
+// thread t of the warp's part of putting -U = (ux, uy, 1) in row 1
+__device__ __forceinline__ void blinded_tail_blind(Fp* ws, int t, const u32* ux, const u32* uy) {
+    for (int k = t; k < 36; k += 32)
+        ws[3 + k / 12].w[k % 12] = k < 12 ? ux[k] : k < 24 ? uy[k - 12] : ONE_W[k - 24];
+}
+
+// group j's part of the step at which h rows remain
+template <int W>
+__device__ __forceinline__ void blinded_tail_step(const Grp& g, const TapeView& T, Fp* ws, int j,
+                                                  int h) {
+    const int half = h > 1 ? h / 2 : 1;
+    for (int a = j; a < half; a += TAIL_GROUPS) {
+        const int p = 3 * a, q = 3 * (a + half);
+        if (fp_is_zero(ws[p + 2])) {              // infinity + row q: a copy
+            u32 *dst = ws[p].w;
+            const u32* src = ws[q].w;
+            par(g, W, 36, [&](int k) { dst[k] = src[k]; });
+        } else if (!fp_is_zero(ws[q + 2])) {
+            run_tape(g, T, TAPE_G1_ADD, ws, p, q, p, TAIL_TMP + j * G1_TEMPS);
+        }
+    }
+}
+
+// thread 0: row 0 to affine row g of (xa, ya) and its infinity flag (a Z of
+// 0, whose inverse is 0, gives zeros), as g1_affine_out does
+__device__ __forceinline__ void blinded_tail_out(Fp* ws, long g, u32* xa, u32* ya,
+                                                 uint8_t* inf) {
+    fp_inv_var(ws[TAIL_TMP], ws[2]);
+#pragma unroll 1
+    for (int k = 0; k < 4; k++)
+        fp_mul(ws[TAIL_AFFINE[k][0]], ws[TAIL_AFFINE[k][1]], ws[TAIL_AFFINE[k][2]]);
+    st(xa, g, ws[TAIL_TMP + 2]);
+    st(ya, g, ws[TAIL_TMP + 4]);
+    inf[g] = fp_is_zero(ws[2]);
 }
 
 // segment g of the gather fold after its tree: affine and the infinity flag
@@ -2556,6 +2635,26 @@ inline void host_g2_subgroup(const u32* xq, const u32* yq, uint8_t* out, long n)
     std::vector<Fp> ws(PSI_WS);
     for (long i = 0; i < n; i++)
         lane_g2_subgroup<PSI_W>(Grp{0, 0}, host_view(), ws.data(), i, xq, yq, out);
+}
+
+// k_blinded_final: per segment the warp's steps, its groups one after
+// another in each step (descending with level_order_reversed), each group's
+// threads as host_view's tapes run them
+inline void host_blinded_final(const u32* X, const u32* Y, const u32* Z, const u32* ux,
+                               const u32* uy, u32* xa, u32* ya, uint8_t* inf, long n_seg,
+                               int n_rows) {
+    std::vector<Fp> ws(TAIL_WS);
+    for (long g = 0; g < n_seg; g++) {
+        for (int t = 0; t < 32; t++) blinded_tail_load(ws.data(), t, n_rows, g, n_seg, X, Y, Z);
+        for (int h = n_rows; h >= 1; h >>= 1) {
+            if (h == 1)
+                for (int t = 0; t < 32; t++) blinded_tail_blind(ws.data(), t, ux, uy);
+            for (int k = 0; k < TAIL_GROUPS; k++)
+                blinded_tail_step<G1_W>(Grp{0, 0}, host_view(), ws.data(),
+                                        level_order_reversed ? TAIL_GROUPS - 1 - k : k, h);
+        }
+        blinded_tail_out(ws.data(), g, xa, ya, inf);
+    }
 }
 #endif
 

@@ -29,6 +29,7 @@ import torch
 
 from lighthouse_tpu_torch.crypto.bls.fields import R as GROUP_R
 from lighthouse_tpu_torch.native import build_cuda_lib, build_host_lib
+from lighthouse_tpu_torch.ops import modinv
 from lighthouse_tpu_torch.ops.bigint import P_INT
 
 # C launchers: (pointer arguments, integer arguments) per function of each
@@ -43,7 +44,7 @@ _SIGNATURES = {
         "lh_fq12_mul_halves": (1, 1),
         "lh_fq12_mul": (3, 1),
         "lh_g2_subgroup": (3, 1),
-        "lh_blinded_final": (8, 1),
+        "lh_blinded_final": (8, 2),
         "lh_g1_gather_scalar_mul": (7, 2),
         "lh_g1_affine": (6, 1),
         "lh_g1_subgroup": (3, 1),
@@ -53,6 +54,7 @@ _SIGNATURES = {
     "kzg": {                                  # csrc/kzg.cu
         "lh_fr_to_mont": (2, 1),
         "lh_fr_eval": (5, 3),
+        "lh_fr_eval_occupancy": (1, 2),
     },
 }
 
@@ -164,11 +166,30 @@ def pipeline_fp_muls(digits: np.ndarray, n_groups: int, lane_mask: np.ndarray) -
 
 
 def blinded_fold_fp_muls(live: np.ndarray, n_segments: int) -> int:
-    """``lh_blinded_fold`` over lanes whose Z != 0 is ``live``: the tree's
-    adds of two live rows, then per segment the add of the blinding total
-    (a live segment), the Fermat inversion and the affine products."""
+    """The Fp products of ``msm.blinded_fold_device`` over lanes whose
+    Z != 0 is ``live``: the tree's adds of two live rows (launches and
+    tail alike), then per segment the add of the blinding total (a live
+    segment) and the 4 affine products.  The inversions are counted apart
+    (``fp_inv_muladds``)."""
     adds, seg_live = tree_products(live, n_segments)
-    return (adds + int(seg_live.sum())) * JAC_ADD + n_segments * (FP_INV + 4)
+    return (adds + int(seg_live.sum())) * JAC_ADD + 4 * n_segments
+
+
+def fp_inv_muladds(z_rows: np.ndarray) -> int:
+    """Multiply-adds of ``fp_inv_var`` (csrc/bls12_381.cuh) on Montgomery
+    word rows [n, 12]: the divsteps on each row's value (``modinv``), then
+    the product by R^3."""
+    rows = np.ascontiguousarray(np.asarray(z_rows, np.uint32).reshape(-1, 12))
+    return sum(modinv.inverse(int.from_bytes(r.astype("<u4").tobytes(), "little"), P_INT)[1]
+               + IMADS_PER_FP_MUL for r in rows)
+
+
+def blinded_fold_muladds(live: np.ndarray, z_rows: np.ndarray) -> int:
+    """32-bit multiply-adds of ``msm.blinded_fold_device``: its Fp products
+    and, per segment, the inversion of the Z that ``z_rows`` (the plain
+    sums', ``msm.blinded_sum_plain``) holds."""
+    return (blinded_fold_fp_muls(live, len(z_rows)) * IMADS_PER_FP_MUL
+            + fp_inv_muladds(z_rows))
 
 
 def g1_fold_fp_muls(digits: np.ndarray, n_segments: int) -> int:

@@ -19,14 +19,16 @@ Kernels (launch counts on each wrapper's ``launches``):
   ``_eval_kernel``: one block per blob.  Each thread takes a chunk of the
   domain, forms d = z - w_i and their running products (Montgomery's trick),
   a product tree over the block's chunk products in shared memory is
-  inverted with ONE Fermat inversion per blob at its root and swept back
-  down, then each thread recovers its d_i^-1, sums f_i·w_i·d_i^-1 and the
-  block adds the sums; thread 0 scales by (z^W - 1)/W.  Any batch inversion
-  gives the same canonical inverses, so the JAX product tree is not copied
-  level by level.  Bound: Fr products (``eval_fr_muls``), 136 multiply-adds
-  each.  A zero denominator (z on the domain) zeroes its blob's inverses:
-  the row finishes with a wrong value and the caller overrides it on the
-  host (``evaluate_polynomials_batch``), as the JAX package does.
+  inverted with ONE divstep inversion per blob at its root
+  (``csrc/modinv.cuh``) and swept back down, then each thread recovers its
+  d_i^-1, sums f_i·w_i·d_i^-1 and the block adds the sums; thread 0 scales
+  by (z^W - 1)/W.  Any batch inversion gives the same canonical inverses, so
+  the JAX product tree is not copied level by level.  Bound: 32-bit
+  multiply-adds (``eval_muladds``): the Fr products (``eval_fr_muls``), 136
+  each, and each root's inversion as its value needs.  A zero denominator
+  (z on the domain) zeroes its blob's inverses: the row finishes with a
+  wrong value and the caller overrides it on the host
+  (``evaluate_polynomials_batch``), as the JAX package does.
 
 On CPU tensors each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -34,11 +36,13 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from lighthouse_tpu_torch.ops import bigint as bi
-from lighthouse_tpu_torch.ops import bls_cuda
+from lighthouse_tpu_torch.ops import bls_cuda, modinv
 
 R_INT = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 
@@ -56,7 +60,7 @@ mont_mul = FR.mont_mul
 # product is 2·8² + 8 = 136 32-bit multiply-adds.
 IMADS_PER_FR_MUL = 2 * L ** 2 + L
 RM2_BITS = tuple(int(b) for b in bin(R_INT - 2)[2:])     # MSB first, 255 bits
-FR_INV = len(RM2_BITS) + sum(RM2_BITS)                   # square and multiply
+FR_INV = len(RM2_BITS) + sum(RM2_BITS)       # fr_inv: Fermat's square and multiply
 EVAL_MAX_THREADS = 256                         # threads per blob (k_fr_eval)
 EVAL_MAX_CHUNK = 16                            # domain points per thread
 
@@ -178,7 +182,8 @@ def eval_plain(f: torch.Tensor, z: torch.Tensor, roots: torch.Tensor,
 
 
 def eval_threads(width: int) -> tuple[int, int]:
-    """(threads per blob, domain points per thread) of ``k_fr_eval``."""
+    """(threads per blob, domain points per thread: the kernel's CHUNK) of
+    ``k_fr_eval``."""
     threads = max(1, min(EVAL_MAX_THREADS, width // 16))
     chunk = width // threads
     if width & (width - 1) or chunk > EVAL_MAX_CHUNK:
@@ -188,14 +193,42 @@ def eval_threads(width: int) -> tuple[int, int]:
 
 
 def eval_fr_muls(n_blobs: int, width: int) -> int:
-    """Fr products of one ``k_fr_eval`` launch: per blob, 5 per domain point
-    less 3 per thread (the running products, two backward products each and
-    the two term products; products by one skipped), the tree's 3 per inner
-    node, one Fermat inversion, log2(W) squarings and 2 for the scale."""
+    """Fr products of one ``k_fr_eval`` launch outside the roots'
+    inversions: per blob, 5 per domain point less 3 per thread (the running
+    products, two backward products each and the two term products;
+    products by one skipped), the tree's 3 per inner node, log2(W)
+    squarings and 2 for the scale."""
     threads, chunk = eval_threads(width)
-    per_blob = (threads * (5 * chunk - 3) + 3 * (threads - 1) + FR_INV
-                + width.bit_length() - 1 + 2)
+    per_blob = threads * (5 * chunk - 3) + 3 * (threads - 1) + width.bit_length() - 1 + 2
     return n_blobs * per_blob
+
+
+def inv_muladds(x_mont: int) -> int:
+    """32-bit multiply-adds of ``fr_inv_var`` (csrc/fr.cuh) on a Montgomery
+    word value: its divsteps (``modinv``) and the product by R^3."""
+    return modinv.inverse(x_mont, R_INT)[1] + IMADS_PER_FR_MUL
+
+
+def eval_muladds(zs: list, width: int) -> int:
+    """32-bit multiply-adds of one ``k_fr_eval`` launch at challenges ``zs``
+    (canonical ints): its Fr products and each blob's root inversion.  The
+    root is the product of z - w over the W-th roots of unity, z^W - 1, in
+    Montgomery form."""
+    roots = ((pow(int(z), width, R_INT) - 1) % R_INT * RADIX % R_INT for z in zs)
+    return (eval_fr_muls(len(zs), width) * IMADS_PER_FR_MUL
+            + sum(inv_muladds(x) for x in roots))
+
+
+def eval_blocks_per_sm(width: int) -> int:
+    """Blocks of ``k_fr_eval`` that one SM of the current card holds at
+    width ``width`` (the CUDA occupancy calculator)."""
+    threads, _ = eval_threads(width)
+    blocks = ctypes.c_int(0)
+    rc = bls_cuda.lib("kzg").lh_fr_eval_occupancy(ctypes.addressof(blocks), width, threads,
+                                                   None)
+    if rc != 0:
+        raise RuntimeError(f"lh_fr_eval_occupancy: CUDA error {rc}")
+    return blocks.value
 
 
 def eval_device(f: torch.Tensor, z: torch.Tensor, roots: torch.Tensor,

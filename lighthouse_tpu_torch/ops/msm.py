@@ -24,14 +24,17 @@ converts to affine and flags the identity.  Bound: Fp products
 sums the s-major segments.  Bound: Fp products
 (``bls_cuda.g1_fold_fp_muls``).
 
-``blinded_fold_device`` is the kernel wrapper of ``lh_blinded_fold``
-(``csrc/bls12_381.cu``): for CUDA tensors it runs one tree launch per level
-(rows i and i + half combined in place) and one final launch per segment
-(add the known blinding total, Fermat inversion, affine, infinity flag);
-for CPU tensors it runs ``blinded_fold_plain``.  Bound: integer multiply-
-adds, 16 Fp products per tree node that joins two finite points (a node
-with an infinity side costs none) and 614 per segment's inversion and
-affine conversion (``bls_cuda.blinded_fold_fp_muls``).
+``blinded_fold_device`` is the kernel wrapper of ``lh_g1_add_halves`` and
+``lh_blinded_final`` (``csrc/bls12_381.cu``): for CUDA tensors it runs one
+tree launch per level (rows i and i + half combined in place) while more
+than ``BLINDED_TAIL_ROWS`` rows a segment remain, then one tail launch, a
+warp a segment, that folds the rest in shared memory, adds the known
+blinding total, inverts Z by divsteps (``csrc/modinv.cuh``) and writes the
+affine row and the infinity flag; for CPU tensors it runs
+``blinded_fold_plain``.  Bound: integer multiply-adds, 16 Fp products per
+tree node that joins two finite points (a node with an infinity side costs
+none), 4 per segment's affine conversion, and each segment's inversion as
+the run's Z values need (``bls_cuda.blinded_fold_muladds``).
 """
 
 from __future__ import annotations
@@ -67,13 +70,36 @@ def fold_segments_gj(xp, yp, xq, yq, digits, n_segments: int):
     return (Xp, Yp, Zp), ec.g2_sum_reduce(SX, SY, SZ)
 
 
-def blinded_fold_plain(X, Y, Z, ux, uy, n_segments: int):
-    """Plain version of ``lh_blinded_fold``: int32 Jacobian rows [S·G, 12]
-    (s-major, lane s·G + g) -> per segment the affine sum minus the
-    blinding total, (xa, ya) int32 [G, 12] and the infinity flags bool[G]."""
+# rows a segment that the tail of ``blinded_fold_device`` folds (a warp;
+# csrc/bls12_381.cuh BLINDED_TAIL_ROWS)
+BLINDED_TAIL_ROWS = 32
+
+
+def blinded_fold_plan(total: int, n_segments: int) -> tuple[list, int]:
+    """The launches of ``blinded_fold_device`` over ``total`` lanes in
+    ``n_segments``: the halves of its tree launches, then the rows a
+    segment its tail folds."""
+    halves, rows = [], total // n_segments
+    while rows > BLINDED_TAIL_ROWS:
+        halves.append(rows * n_segments // 2)
+        rows //= 2
+    return halves, rows
+
+
+def blinded_sum_plain(X, Y, Z, ux, uy, n_segments: int):
+    """Per segment the Jacobian sum of the blinded fold's rows plus the
+    blinding total, int64 words (X, Y, Z) [G, 12]: what the tail inverts."""
     Xg, Yg, Zg = ec.g1_segment_sum(bi.u64(X), bi.u64(Y), bi.u64(Z), n_segments)
     u = (bi.u64(ux).expand(Xg.shape), bi.u64(uy).expand(Yg.shape), bi.one_like(Xg))
-    Xr, Yr, Zr = ec.jac_add_full(ec._G1, (Xg, Yg, Zg), u)
+    return ec.jac_add_full(ec._G1, (Xg, Yg, Zg), u)
+
+
+def blinded_fold_plain(X, Y, Z, ux, uy, n_segments: int):
+    """Plain version of ``blinded_fold_device``: int32 Jacobian rows
+    [S·G, 12] (s-major, lane s·G + g) -> per segment the affine sum minus
+    the blinding total, (xa, ya) int32 [G, 12] and the infinity flags
+    bool[G]."""
+    Xr, Yr, Zr = blinded_sum_plain(X, Y, Z, ux, uy, n_segments)
     xa, ya = ec.g1_jacobian_to_affine(Xr, Yr, Zr)
     return bi.i32(xa), bi.i32(ya), bi.is_zero(Zr)
 
@@ -96,15 +122,14 @@ def blinded_fold_device(X, Y, Z, ux, uy, n_segments: int):
     if dev.type == "cpu":
         return blinded_fold_plain(X, Y, Z, ux, uy, n_segments)
     X, Y, Z = X.clone(), Y.clone(), Z.clone()      # the tree works in place
-    half = total // 2
-    while half >= n_segments:
+    halves, rows = blinded_fold_plan(total, n_segments)
+    for half in halves:
         bls_cuda.launch("lh_g1_add_halves", X, Y, Z, half)
         blinded_fold_device.launches += 1
-        half //= 2
     xa = torch.empty((n_segments, bi.L), dtype=torch.int32, device=dev)
     ya = torch.empty_like(xa)
     inf = torch.empty(n_segments, dtype=torch.uint8, device=dev)
-    bls_cuda.launch("lh_blinded_final", X, Y, Z, ux, uy, xa, ya, inf, n_segments)
+    bls_cuda.launch("lh_blinded_final", X, Y, Z, ux, uy, xa, ya, inf, n_segments, rows)
     blinded_fold_device.launches += 1
     blinded_fold_device.calls += 1
     return xa, ya, inf.bool()

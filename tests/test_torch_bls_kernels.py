@@ -30,6 +30,7 @@ import torch
 
 from lighthouse_tpu_torch import native
 from lighthouse_tpu_torch import testing as T
+from lighthouse_tpu_torch.crypto.bls import api
 from lighthouse_tpu_torch.crypto.bls import curve as cv
 from lighthouse_tpu_torch.crypto.bls.fields import P, Fq2, Fq6, Fq12
 from lighthouse_tpu_torch.crypto.bls.pairing_fast import miller_loop_fast
@@ -44,8 +45,10 @@ HARNESS = r"""
 #include "bls12_381.cuh"
 using namespace bls;
 namespace bls { unsigned long long bls_fp_mul_count = 0; }
+namespace modinv { unsigned long long modinv_muladd_count = 0; }
 extern "C" {
 unsigned long long h_count() { return bls::bls_fp_mul_count; }
+unsigned long long h_muladds() { return modinv::modinv_muladd_count; }
 void h_fp(int op, const u32* a, const u32* b, u32* r, long n) {
     for (long i = 0; i < n; i++) {
         Fp x, y, z;
@@ -106,8 +109,8 @@ void h_psi_scan(int group, const u32* xq, const u32* yq, u32* S, long n) {
     }
 }
 void h_blinded_final(const u32* X, const u32* Y, const u32* Z, const u32* ux, const u32* uy,
-                     u32* xa, u32* ya, uint8_t* inf, long n) {
-    for (long i = 0; i < n; i++) lane_blinded_final(i, X, Y, Z, ux, uy, xa, ya, inf);
+                     u32* xa, u32* ya, uint8_t* inf, long n, int rows) {
+    host_blinded_final(X, Y, Z, ux, uy, xa, ya, inf, n, rows);
 }
 }
 """
@@ -129,10 +132,12 @@ def lanes(tmp_path_factory):
     (d / "harness.cc").write_text(HARNESS)
     so = d / "harness.so"
     subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-                    "-DBLS_COUNT_FP_MULS", f"-I{native.CSRC}", str(d / "harness.cc"),
+                    "-DBLS_COUNT_FP_MULS", "-DMODINV_COUNT_MULADDS", f"-I{native.CSRC}",
+                    str(d / "harness.cc"),
                     "-o", str(so)], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     lib.h_count.restype = ctypes.c_ulonglong
+    lib.h_muladds.restype = ctypes.c_ulonglong
     return lib
 
 
@@ -342,6 +347,32 @@ def test_psi_group_lanes_equal_the_one_thread_lanes_and_plain(lanes, psi_case, r
     assert not scan[1, 2].any() and all(scan[i, 2].any() for i in (0, 2, 3, 4))
 
 
+def _blinded_fold(lanes, X, Y, Z, ux, uy, n_seg: int) -> tuple:
+    """``msm.blinded_fold_device``'s launches on the host, by its plan: the
+    tree levels (``lane_add_halves``), then the tail (``host_blinded_final``,
+    a warp's lanes in turn) -> (xa, ya, inf, Fp products, multiply-adds)."""
+    X, Y, Z = (np.ascontiguousarray(a, np.uint32).copy() for a in (X, Y, Z))
+    halves, rows = msm.blinded_fold_plan(X.shape[0], n_seg)
+    xa, ya = np.zeros((n_seg, 12), np.uint32), np.zeros((n_seg, 12), np.uint32)
+    inf = np.zeros(n_seg, np.uint8)
+    p0, m0 = lanes.h_count(), lanes.h_muladds()
+    for half in halves:
+        lanes.h_halves(0, _ptr(X), _ptr(Y), _ptr(Z), ctypes.c_long(half))
+    lanes.h_blinded_final(_ptr(X), _ptr(Y), _ptr(Z), _ptr(ux), _ptr(uy), _ptr(xa), _ptr(ya),
+                          _ptr(inf), ctypes.c_long(n_seg), ctypes.c_int(rows))
+    return xa, ya, inf, lanes.h_count() - p0, lanes.h_muladds() - m0
+
+
+def _blinded_work(X, Y, Z, ux, uy, n_seg: int) -> tuple:
+    """What the bound counts for these lanes: (Fp products besides the
+    inversions, all multiply-adds), the inversions on the plain sums' Z."""
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32))  # noqa: E731
+    zs = _np(msm.blinded_sum_plain(as_t(X), as_t(Y), as_t(Z), as_t(ux), as_t(uy), n_seg)[2])
+    live = np.asarray(Z).any(axis=1)
+    return (bls_cuda.blinded_fold_fp_muls(live, n_seg),
+            bls_cuda.blinded_fold_muladds(live, zs))
+
+
 def test_blinded_final_lanes_equal_plain(lanes):
     pks = T.consecutive_pubkeys(900, 3)
     pts = [pk.point for pk in pks] + [cv.g1_neg(pks[0].point)]
@@ -350,15 +381,12 @@ def test_blinded_final_lanes_equal_plain(lanes):
     Z = np.tile(bi.ONE_M, (4, 1))
     u = cv.g1_mul(cv.g1_generator(), 12345)
     ux, uy = bi.ints_to_mont_limbs([u[0]]), bi.ints_to_mont_limbs([u[1]])
-    xa, ya = np.zeros((2, 12), np.uint32), np.zeros((2, 12), np.uint32)
-    inf = np.zeros(2, np.uint8)
-    # two segments of two lanes (s-major): segment 0 = pk0 + pk2, 1 = pk1 - pk0
-    Xl, Yl, Zl = X.copy(), Y.copy(), Z.copy()
-    count = _counted(lanes, lanes.h_halves, 0, _ptr(Xl), _ptr(Yl), _ptr(Zl), ctypes.c_long(2))
-    count += _counted(lanes, lanes.h_blinded_final, _ptr(Xl), _ptr(Yl), _ptr(Zl), _ptr(ux),
-                      _ptr(uy), _ptr(xa), _ptr(ya), _ptr(inf), ctypes.c_long(2))
-    assert count == bls_cuda.blinded_fold_fp_muls(np.ones(4, bool), 2)
     as_t = lambda a: torch.from_numpy(a.view(np.int32))  # noqa: E731
+    # two segments of two lanes (s-major): segment 0 = pk0 + pk2, 1 = pk1 - pk0
+    xa, ya, inf, count, adds = _blinded_fold(lanes, X, Y, Z, ux, uy, 2)
+    fp_muls, muladds = _blinded_work(X, Y, Z, ux, uy, 2)
+    assert count == fp_muls + 2 and fp_muls == bls_cuda.blinded_fold_fp_muls(np.ones(4, bool), 2)
+    assert count * bls_cuda.IMADS_PER_FP_MUL + adds == muladds
     pxa, pya, pinf = msm.blinded_fold_plain(as_t(X), as_t(Y), as_t(Z), as_t(ux), as_t(uy), 2)
     assert np.array_equal(xa, bi.to_numpy(pxa)) and np.array_equal(ya, bi.to_numpy(pya))
     assert inf.tolist() == pinf.to(torch.uint8).tolist() == [0, 0]
@@ -366,14 +394,45 @@ def test_blinded_final_lanes_equal_plain(lanes):
     assert (bi.from_mont(xa[0]), bi.from_mont(ya[0])) == want
     # an infinity lane (a set with fewer keys) joins its segment with no product
     Z[2] = 0
-    Xl, Yl, Zl = X.copy(), Y.copy(), Z.copy()
-    count = _counted(lanes, lanes.h_halves, 0, _ptr(Xl), _ptr(Yl), _ptr(Zl), ctypes.c_long(2))
-    count += _counted(lanes, lanes.h_blinded_final, _ptr(Xl), _ptr(Yl), _ptr(Zl), _ptr(ux),
-                      _ptr(uy), _ptr(xa), _ptr(ya), _ptr(inf), ctypes.c_long(2))
-    assert count == bls_cuda.blinded_fold_fp_muls(Z.any(axis=1), 2)
+    xa, ya, inf, count, adds = _blinded_fold(lanes, X, Y, Z, ux, uy, 2)
+    fp_muls, muladds = _blinded_work(X, Y, Z, ux, uy, 2)
+    assert count == fp_muls + 2 and fp_muls == bls_cuda.blinded_fold_fp_muls(Z.any(axis=1), 2)
+    assert count * bls_cuda.IMADS_PER_FP_MUL + adds == muladds
     pxa, pya, _ = msm.blinded_fold_plain(as_t(X), as_t(Y), as_t(Z), as_t(ux), as_t(uy), 2)
     assert np.array_equal(xa, bi.to_numpy(pxa)) and np.array_equal(ya, bi.to_numpy(pya))
     assert (bi.from_mont(xa[0]), bi.from_mont(ya[0])) == cv.g1_add(pts[0], u)
+
+
+@pytest.mark.parametrize("seg", [4, 32, 64])
+@ORDERS
+def test_blinded_tail_equals_plain(lanes, seg, reverse):
+    """The row 8 tail at segments of 4 and 32 rows (the tail takes them
+    whole) and 64 (one tree launch first), in the real lane layout
+    (``bb.fold_lanes``): a full set, a set whose keys P and -P cancel (the
+    segment reads as the identity once the blinding total is added), a set
+    of one key (padding lanes) and a segment with no set at all; the warp's
+    lanes in both orders."""
+    max_k = seg // 2
+    pks = T.consecutive_pubkeys(700 + seg, max_k + 1)
+    neg = cv.g1_neg(pks[0].point)
+    sig = api.Signature(bytes([0xC0]) + bytes(95))
+    sets = [api.SignatureSet(sig, pks[1:max_k + 1], b"m"),
+            api.SignatureSet(sig, [pks[0], api.PublicKey(cv.g1_to_bytes(neg), neg)], b"m"),
+            api.SignatureSet(sig, pks[:1], b"m")]
+    X, Y, Z, ux, uy, n_pad = bb.fold_lanes(sets)
+    assert n_pad == 4 and X.shape[0] == seg * n_pad
+    with _level_order(lanes, reverse):
+        xa, ya, inf, count, adds = _blinded_fold(lanes, X, Y, Z, ux, uy, n_pad)
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32))  # noqa: E731
+    pxa, pya, pinf = msm.blinded_fold_plain(*(as_t(a) for a in (X, Y, Z, ux, uy)), n_pad)
+    assert np.array_equal(xa, bi.to_numpy(pxa)) and np.array_equal(ya, bi.to_numpy(pya))
+    assert inf.tolist() == pinf.to(torch.uint8).tolist() == [0, 1, 0, 1]
+    assert not xa[1].any() and not ya[1].any() and not xa[3].any()
+    for i in (0, 2):
+        assert (bi.from_mont(xa[i]), bi.from_mont(ya[i])) == sets[i].aggregate_pubkey()
+    fp_muls, muladds = _blinded_work(X, Y, Z, ux, uy, n_pad)
+    assert count == fp_muls + n_pad
+    assert count * bls_cuda.IMADS_PER_FP_MUL + adds == muladds
 
 
 @ORDERS
@@ -502,7 +561,14 @@ def test_multiply_counts_of_the_path_shapes():
     chunk = bls_cuda.pipeline_fp_muls(np.full((16, 512), 7, np.int32), 64, np.ones(64, bool))
     assert chunk == 512 * lane + 448 * 16 + 511 * 48 + 65 * 7679 + 64 * 54
     live = np.array([1, 1, 0, 1, 1, 1, 1, 1], bool)
-    assert bls_cuda.blinded_fold_fp_muls(live, 2) == (3 + 2 + 2) * 16 + 2 * (610 + 4)
+    # the tree's 3 + 2 adds, 2 blinding adds and 4 affine products a segment;
+    # the inversions (divsteps, then one product by R^3) count apart
+    assert bls_cuda.blinded_fold_fp_muls(live, 2) == (3 + 2 + 2) * 16 + 2 * 4
+    z_one = np.tile(bi.ONE_M, (2, 1))
+    inv_one = bls_cuda.fp_inv_muladds(z_one[:1])
+    assert bls_cuda.blinded_fold_muladds(live, z_one) == (
+        ((3 + 2 + 2) * 16 + 2 * 4) * 300 + 2 * inv_one)
+    assert 300 < inv_one < bls_cuda.FP_INV * 300 // 10
     assert bls_cuda.IMADS_PER_FP_MUL == 300
 
 

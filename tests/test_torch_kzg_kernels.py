@@ -42,8 +42,10 @@ using std::size_t;
 #include "bls12_381.cuh"
 namespace fr { unsigned long long fr_mul_count = 0; }
 namespace bls { unsigned long long bls_fp_mul_count = 0; }
+namespace modinv { unsigned long long modinv_muladd_count = 0; }
 extern "C" {
 unsigned long long h_fr_count() { return fr::fr_mul_count; }
+unsigned long long h_muladd_count() { return modinv::modinv_muladd_count; }
 unsigned long long h_fp_count() { return bls::bls_fp_mul_count; }
 void h_fr(int op, const uint32_t* a, const uint32_t* b, uint32_t* r, long n) {
     for (long i = 0; i < n; i++) {
@@ -60,35 +62,11 @@ void h_fr(int op, const uint32_t* a, const uint32_t* b, uint32_t* r, long n) {
 void h_to_mont(const uint8_t* raw, uint32_t* out, long n) {
     for (long i = 0; i < n; i++) fr::lane_fr_to_mont(i, raw, out);
 }
-// k_fr_eval for every blob, its phases as loops over the block's T threads
+// k_fr_eval for every blob: fr.cuh's host version, its phases as loops over
+// the block's T threads at the kernel's chunk (width / T)
 void h_eval(const uint32_t* f, const uint32_t* zs, const uint32_t* roots, const uint32_t* inv_w,
             uint32_t* y, long n, long width, int T) {
-    int chunk = (int)(width / T);
-    std::vector<fr::Fr> tree(2 * T), pre((size_t)T * chunk);
-    for (long b = 0; b < n; b++) {
-        fr::Fr z;
-        fr::ld(z, zs, b);
-        const uint32_t* f_row = f + (size_t)b * width * 8;
-        for (int t = 0; t < T; t++)
-            fr::eval_leaf(tree[T + t], &pre[(size_t)t * chunk], z, roots, (long)t * chunk, chunk);
-        for (int k = T / 2; k >= 1; k >>= 1)
-            for (int t = 0; t < k; t++) fr::eval_up(tree.data(), k + t);
-        fr::eval_root(tree.data());
-        for (int k = 1; k < T; k <<= 1)
-            for (int t = 0; t < k; t++) fr::eval_down(tree.data(), k + t);
-        for (int t = 0; t < T; t++) {
-            fr::Fr sum;
-            fr::eval_terms(sum, &pre[(size_t)t * chunk], tree[T + t], z, f_row, roots,
-                           (long)t * chunk, chunk);
-            tree[T + t] = sum;
-        }
-        for (int k = T / 2; k >= 1; k >>= 1)
-            for (int t = 0; t < k; t++) fr::fr_add(tree[T + t], tree[T + t], tree[T + t + k]);
-        fr::Fr iw, out;
-        fr::ld(iw, inv_w, 0);
-        fr::eval_scale(out, tree[T], z, iw, width);
-        fr::st(y, b, out);
-    }
+    fr::host_eval(f, zs, roots, inv_w, y, n, width, T);
 }
 void h_reverse(int on) { bls::level_order_reversed = on != 0; }
 void h_g1_mul(const uint32_t* xs, const uint32_t* ys, const int32_t* d, uint32_t* X, uint32_t* Y,
@@ -126,12 +104,14 @@ def lanes(tmp_path_factory):
     (d / "harness.cc").write_text(HARNESS)
     so = d / "harness.so"
     subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-                    "-DFR_COUNT_MULS", "-DBLS_COUNT_FP_MULS", f"-I{native.CSRC}",
+                    "-DFR_COUNT_MULS", "-DBLS_COUNT_FP_MULS", "-DMODINV_COUNT_MULADDS",
+                    f"-I{native.CSRC}",
                     str(d / "harness.cc"), "-o", str(so)], check=True, capture_output=True,
                    text=True)
     lib = ctypes.CDLL(str(so))
     lib.h_fr_count.restype = ctypes.c_ulonglong
     lib.h_fp_count.restype = ctypes.c_ulonglong
+    lib.h_muladd_count.restype = ctypes.c_ulonglong
     return lib
 
 
@@ -192,26 +172,33 @@ def test_to_mont_lanes_equal_plain(lanes):
     assert fr.FR.mont_limbs_to_ints(out) == [v % R for v in vals]
 
 
-@pytest.mark.parametrize("width", [16, 64])
+@pytest.mark.parametrize("width", [16, 64, 2, 4, 8, 512])
 def test_eval_phases_equal_plain_with_a_root_hit(lanes, width):
-    """W = 16 runs one thread per blob, W = 64 four threads of 16 points (a
-    product tree of two levels); blob 1's challenge is a domain point, whose
-    row both versions finish with zero inverses."""
+    """The kernel's phases at each chunk its template takes: W = 2, 4, 8
+    and 16 run one thread of W points per blob, W = 64 four threads of 16
+    points (a product tree of two levels), W = 512 32 threads of 16; blob
+    1's challenge is a domain point, whose row both versions finish with
+    zero inverses.  The work: the Fr products of ``eval_fr_muls`` plus one
+    (by R^3) a blob, and each root's divsteps as ``eval_muladds`` counts
+    them."""
     settings = kzg.KzgSettings.dev(width, device="cpu")
     rng = np.random.default_rng(width)
     n = 3
     f = fr.to_mont_host([int.from_bytes(rng.bytes(32), "big") % R for _ in range(n * width)])
     f = f.reshape(n, width, 8)
     zs = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(n)]
-    zs[1] = settings.roots_brp[5]
+    zs[1] = settings.roots_brp[5 % width]
     z = fr.to_mont_host(zs)
     roots = fr.to_mont_host(settings.roots_brp)
     inv_w = fr.to_mont_host([pow(width, -1, R)])
     y = np.zeros((n, 8), np.uint32)
     threads, _ = fr.eval_threads(width)
+    adds = lanes.h_muladd_count()
     count = _counted(lanes.h_fr_count, lanes.h_eval, _ptr(f), _ptr(z), _ptr(roots), _ptr(inv_w),
                      _ptr(y), ctypes.c_long(n), ctypes.c_long(width), ctypes.c_int(threads))
-    assert count == fr.eval_fr_muls(n, width)
+    adds = lanes.h_muladd_count() - adds
+    assert count == fr.eval_fr_muls(n, width) + n
+    assert count * fr.IMADS_PER_FR_MUL + adds == fr.eval_muladds(zs, width)
     plain = fr.eval_plain(_t(f), _t(z), _t(roots), _t(inv_w))
     assert np.array_equal(y, bi.to_numpy(plain))
     polys = [fr.FR.mont_limbs_to_ints(f[i]) for i in range(n)]
@@ -223,12 +210,19 @@ def test_eval_phases_equal_plain_with_a_root_hit(lanes, width):
 
 def test_eval_product_count_at_the_cell():
     """768 blobs of 4096: 256 threads of 16 points, 5 products a point less
-    3 a thread, 3 per tree node, the inversion (255 squarings, 164 set bits
-    of r - 2), 12 squarings and 2."""
+    3 a thread, 3 per tree node, 12 squarings and 2; the root's inversion,
+    now divsteps, counts apart as multiply-adds (a challenge on the domain
+    has a zero root: the product by R^3 alone).  Fermat's fr_inv (255
+    squarings, 164 set bits of r - 2) stays for its own callers."""
     assert fr.FR_INV == 255 + 164
-    per_blob = 256 * (5 * 16 - 3) + 3 * 255 + 419 + 12 + 2
+    per_blob = 256 * (5 * 16 - 3) + 3 * 255 + 12 + 2
     assert fr.eval_fr_muls(768, 4096) == 768 * per_blob
     assert fr.IMADS_PER_FR_MUL == 136
+    roots = kzg._bit_reversal_permutation(kzg._compute_roots_of_unity(4096))
+    zs = [5, roots[77]]
+    root5 = (pow(5, 4096, R) - 1) * fr.RADIX % R
+    assert fr.eval_muladds(zs, 4096) == (2 * per_blob * 136 + fr.inv_muladds(root5) + 136)
+    assert 136 < fr.inv_muladds(root5) < 419 * 136 // 10
 
 
 def test_g1_scalar_mul_and_fold_lanes_equal_plain(lanes):
