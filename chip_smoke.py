@@ -15,7 +15,9 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    report.
 2. Each SHA-256 kernel against its plain PyTorch version on the card, at
    the shapes of a 2^20-validator state root, bit for bit (tolerance 0:
-   SHA-256 is integer arithmetic); the pair hash also against hashlib.
+   SHA-256 is integer arithmetic); the pair hash also against hashlib, and
+   the whole-tree fold against hashlib at 2^20 leaves and against its plain
+   version and hashlib at every width 2 to 2^12 (with its plan per width).
    Times every kernel and plain version with CUDA events.
 3. The state root of a 2^14-validator mainnet-preset Deneb state from the
    kernels against the root hashed on the host with hashlib.
@@ -100,7 +102,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     registry's points) and on edges (a group of P and -P under one scalar
     and an empty group must read as the identity, the others must equal
     the host lincomb); the G1 membership check (row 12) over 4,096 lanes
-    with a point outside G1 and a point of order 3 (both must read False).
+    led by a point outside G1, both points of order 3, a member plus a
+    point of order 3 and a point off the curve (all must read False),
+    with its ptxas line and its time as cycles of a lane per tape level
+    and row.
 13. The main paths (BASELINE config 3, ``testing.flood_cell``: a
     65,536-validator mainnet Deneb state, 32,768 single-bit attestations,
     each signed by its attester's own key, in 16 wire batches of 2,048):
@@ -176,7 +181,7 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     ``dryrun_multichip(4)``.  Afterwards: the ``cuda`` backend's verdict,
     a wrong-message, a swapped-signature, an empty and a no-pubkey batch
     reading False; row 20, ``sharded_fold_to_root``, against its plain
-    version and hashlib at the JAX package's shape over 4 and 3 and at
+    version and hashlib at the JAX package's shape over 4, 3, 2 and 1 and at
     full width over 4, the full-width root also against the single-device
     fold; ``epoch_pass_sharded`` over 4 on phase 8's columns against the
     single-device pass and ``gather_fold_sharded`` over 4 at phase 12's
@@ -329,6 +334,25 @@ def main() -> int:
                            library_ms=None)
         log(f"kernel {name} [{N_FULL} x {x.shape[1]}]: == plain (max err {err}); "
             f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    # the whole-tree fold also against hashlib at 2^20 leaves, and at every
+    # width 2 to 2^12 against its plain version and hashlib (one launch each)
+    host = leaves_np
+    while host.shape[0] > 1:
+        host = sha.hash_pairs_np(host.reshape(-1, 16))
+    if not np.array_equal(sha.to_numpy(sha.fold_to_root_device(leaves)), host):
+        raise SystemExit("fold_to_root: kernel disagrees with hashlib at 2^20 leaves")
+    for log_n in range(1, 13):
+        x = leaves[:1 << log_n]
+        got = sha.fold_to_root_device(x)
+        host = leaves_np[:1 << log_n]
+        while host.shape[0] > 1:
+            host = sha.hash_pairs_np(host.reshape(-1, 16))
+        if not torch.equal(got, sha.fold_to_root_plain(x)) or \
+                not np.array_equal(sha.to_numpy(got), host):
+            raise SystemExit(f"fold_to_root: kernel disagrees at 2^{log_n} leaves")
+    log(f"fold_to_root == plain == hashlib at 2^20 leaves and at every width 2 to 2^12; "
+        f"plans (leaves a thread, threads a block, blocks, one launch's capacity): "
+        f"{ {f'2^{k}': tuple(sha.fold_plan(1 << k).values()) for k in (12, 16, 17, 18, 19, 20)} }")
     del pairs, leaves, got, want
 
     # -- 3. small state: kernels against hashlib ---------------------------
@@ -741,12 +765,13 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
 # The kernels that run a lane on a group of threads from tapes (csrc/bls12_381.cuh):
 # a spill in any of them fails the run.
 GROUP_KERNELS = ("k_gj_scalar_mul", "k_g1_scalar_mul", "k_g1_gather_scalar_mul", "k_miller",
-                 "k_fq12_mul_halves", "k_fq12_mul", "k_g2_subgroup", "k_final_exp_hard")
+                 "k_fq12_mul_halves", "k_fq12_mul", "k_g2_subgroup", "k_final_exp_hard",
+                 "k_g1_subgroup")
 # Kernels whose values must all stay in registers or shared memory (rows 8
 # and 15's redesign): a stack frame or a spill in either fails the run.
 NO_STACK_KERNELS = ("k_blinded_final", "k_fr_eval")
 BLS_KERNELS = GROUP_KERNELS + ("k_g1_add_halves", "k_g2_add_halves", "k_blinded_final",
-                               "k_g1_affine", "k_g1_subgroup", "k_fp_mul_chain")
+                               "k_g1_affine", "k_fp_mul_chain")
 
 
 def ptxas_report(native, name: str, kernels) -> None:
@@ -1447,6 +1472,7 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> dict:
     """Phases 12-13: the gossip attestation flood and the trusted-setup load.
     Returns the host inputs of row 11 at config 3's full shape (phase 16
     folds them over a mesh)."""
+    from lighthouse_tpu_torch import native
     from lighthouse_tpu_torch import testing as T
     from lighthouse_tpu_torch.chain import columnar_ingest as ci
     from lighthouse_tpu_torch.chain import pubkey_plane
@@ -1552,11 +1578,17 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> dict:
         cases.append((key, label, msm.gather_fold_device, msm.gather_fold_plain, args,
                       bls_cuda.gather_fold_fp_muls(digits_np, segs),
                       lanes * (96 + 4 + 64) + segs * 97, "lighthouse_tpu/ops/msm.py:127", 3))
-    sub = list(cell["points"][2:EDGE_ROWS])
-    sub = [T.non_g1_point(3), T.ORDER3_G1] + sub
+    # row 12's edge lanes first: a curve point outside G1, both points of
+    # order 3, a member plus a point of order 3 and a point off the curve
+    off_curve = (int.from_bytes(rng.bytes(48), "big") % bi.P_INT,
+                 int.from_bytes(rng.bytes(48), "big") % bi.P_INT)
+    edges = [T.non_g1_point(3), T.ORDER3_G1, cv.g1_neg(T.ORDER3_G1),
+             cv.g1_add(cell["points"][0], T.ORDER3_G1), off_curve]
+    sub = edges + list(cell["points"][len(edges):EDGE_ROWS])
     sxp, syp = ec.g1_words(sub, dev)
-    cases.append(("g1_subgroup", f"g1_subgroup [{len(sub)} lanes, a non-G1 point and a point "
-                  "of order 3]", bb.g1_subgroup_device, bb.g1_subgroup_plain, (sxp, syp),
+    cases.append(("g1_subgroup", f"g1_subgroup [{len(sub)} lanes: a non-G1 point, both points "
+                  "of order 3, a member plus one, a point off the curve, then members]",
+                  bb.g1_subgroup_device, bb.g1_subgroup_plain, (sxp, syp),
                   len(sub) * bls_cuda.G1_SUBGROUP_LANE, len(sub) * 97,
                   "lighthouse_tpu/ops/bls_backend.py:207", 3))
     for key, label, kernel, plain, kargs, fp_muls, nbytes, replaces, reps_ in cases:
@@ -1577,8 +1609,8 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> dict:
             raise SystemExit(f"{label}: kernel disagrees with its plain version (max err {err})")
         if key == "g1_subgroup":
             verdict = got[0].tolist()
-            if verdict[:2] != [False, False] or not all(verdict[2:]):
-                raise SystemExit(f"{label}: wrong membership verdicts {verdict[:4]}...")
+            if any(verdict[:len(edges)]) or not all(verdict[len(edges):]):
+                raise SystemExit(f"{label}: wrong membership verdicts {verdict[:8]}...")
         if key == "gather_fold@edges":
             xs, ys = bi.mont_limbs_to_ints(bi.to_numpy(got[0])), bi.mont_limbs_to_ints(
                 bi.to_numpy(got[1]))
@@ -1592,6 +1624,12 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> dict:
         bound_ms, bound_by = bound(fp_muls, nbytes)
         log(f"kernel {label}: == plain (max err {err}); {ms:.4f} ms, plain {plain_ms:.2f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {fp_muls} Fp products)")
+        if key == "g1_subgroup":      # row 12's lane as group 4 threads wide (row 6's line)
+            ptxas_report(native, "bls12_381", ("k_g1_subgroup",))
+            lane_cycles(bls_cuda.tape_stats(), bls_cuda.G1_SUBGROUP_TAPES,
+                        bls_cuda.G1_SUBGROUP_OTHER_LEVELS, ms, max_mhz,
+                        fp_mul_cycles(torch, np, dev, bls_cuda, bi, max_mhz),
+                        f"g1_subgroup ({bls_cuda.G1_SUBGROUP_LANE} Fp products a lane)")
         if "@" not in key:
             table[key] = dict(name=key, route="cuda",
                               source="lighthouse_tpu_torch/csrc/bls12_381.cu", replaces=replaces,
@@ -2316,6 +2354,7 @@ def sharded_phase(torch, np, dev, table, max_mhz, int32_ops_per_s, block, inputs
                          "single-device fold")
     row20 = {}
     for label, n_dev, words in (("JAX shape", 4, None), ("JAX shape", 3, None),
+                                ("JAX shape", 2, None), ("JAX shape", 1, None),
                                 (f"{leaves.shape[0]} validator roots", 4, leaves)):
         if words is None:
             n = n_dev * dw.LEAVES_PER_SHARD

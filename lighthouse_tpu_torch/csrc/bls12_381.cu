@@ -23,7 +23,8 @@
 //                       -> ops/msm.py:127 _gather_fold (wrapper
 //                          msm.gather_fold_device)
 //   lh_g1_subgroup      -> ops/bls_backend.py:207 _g1_subgroup_kernel (wrapper
-//                          bls_backend.g1_subgroup_device)
+//                          bls_backend.g1_subgroup_device): Scott's sigma test,
+//                          group lanes of 4
 //   lh_final_exp_hard   -> ops/bls_backend.py:395 _final_exp_hard_jit over
 //                          ops/bls12_381.py:702 final_exp_hard_device (wrapper
 //                          bls12_381.final_exp_hard_device): the whole x-ladder
@@ -43,7 +44,8 @@
 // scalar multiplications, the Miller loop, the Fq12 product tree, the psi
 // check and the final exponentiation's hard part give each lane a group of
 // threads (a warp; 16 threads for the psi check, two lanes a warp; 4
-// threads for the G1 scalar multiplication): the lane's state (window
+// threads for the G1 scalar multiplication and membership): the lane's
+// state (window
 // table and accumulator; f, T and the Miller constants; T and the base;
 // the ladder's Fq12 values) lives in dynamic shared memory, and each step
 // runs from a tape of levels, thread t of the group taking positions t,
@@ -52,16 +54,26 @@
 // block, so that 132 lanes reach 132 SMs.  The tapes are built on the host
 // (csrc/bls_tapes.cc, the code the CPU tests run), copied to each device
 // before its first group launch, and staged by each block in shared memory
-// after its lanes' workspaces.  The G1 membership check and the segment,
-// G2 and affine steps run one thread a lane, with the same register-held
-// Fp product; the trees launch once per level, each thread or group
-// combining rows i and i + half in place.  The blinded fold's tree stops
-// at 32 rows a segment: its tail (k_blinded_final) folds them a warp a
-// segment in shared memory, 8 groups of 4 threads over the G1 add's tape,
-// adds the blinding total and inverts Z by divsteps (csrc/modinv.cuh:
-// about 4,300 multiply-adds in batches of independent limb products,
-// where Fermat's a^(p-2) was a chain of 610 dependent Fp products on one
-// thread).  Each launcher returns
+// after its lanes' workspaces.  The G1 membership check (row 12) was a
+// 255-bit [r-1]P scan of one thread a lane in 64-thread blocks: 3,234
+// dependent products, each a product's latency, on 64 of the 132 SMs
+// (5.38 ms at 4,096 lanes).  It is now Scott's sigma test (bls12_381.cuh
+// lane_g1_subgroup: two 64-bit scans, 1,025 products) as a group of 4
+// threads a lane over the G1 membership tapes, 8 lanes a warp-sized block,
+// so the trusted setup's 4,096 lanes fill 512 warps on all SMs.  What
+// bounds it is still latency: about one warp a scheduler, each running 431
+// product rounds and 1,256 linear rows a lane one after another.  Making
+// the second scan's base affine (one thread's divstep inversion, then the
+// mixed add) measured about 1% slower on an H100 (PERF.md), so the second
+// scan keeps the full add.  The segment, G2 and affine steps run one
+// thread a lane, with the same register-held Fp product; the trees launch
+// once per level, each thread or group combining rows i and i + half in
+// place.  The blinded fold's tree stops at 32 rows a segment: its tail
+// (k_blinded_final) folds them a warp a segment in shared memory, 8 groups
+// of 4 threads over the G1 add's tape, adds the blinding total and inverts
+// Z by divsteps (csrc/modinv.cuh: about 4,300 multiply-adds in batches of
+// independent limb products, where Fermat's a^(p-2) was a chain of 610
+// dependent Fp products on one thread).  Each launcher returns
 // cudaGetLastError() of its launch, or the error of the tapes' copy.
 
 #include <cuda_runtime.h>
@@ -200,9 +212,14 @@ __global__ void k_g1_affine(long n, const u32* X, const u32* Y, const u32* Z, u3
     if (g < n) lane_g1_affine(g, X, Y, Z, xa, ya, inf);
 }
 
-__global__ void k_g1_subgroup(long n, const u32* xp, const u32* yp, uint8_t* out) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) lane_g1_subgroup(i, xp, yp, out);
+// row 12: G1 membership, 4 threads a lane over the G1 membership tapes
+// (bls12_381.cuh lane_g1_subgroup)
+__global__ void k_g1_subgroup(long n, const u32* xp, const u32* yp, uint8_t* out, Span sp) {
+    const TapeView tv = stage(sp, lh_smem + (32 / G1_W) * GS_WS);
+    int lane;
+    Grp g = group<G1_W>(lane);
+    long i = (long)blockIdx.x * (32 / G1_W) + lane;
+    if (i < n) lane_g1_subgroup<G1_W>(g, tv, lh_smem + lane * GS_WS, i, xp, yp, out);
 }
 
 __global__ void k_g1_add_halves(long half, u32* X, u32* Y, u32* Z) {
@@ -255,12 +272,12 @@ inline cudaStream_t S(void* s) { return reinterpret_cast<cudaStream_t>(s); }
 
 // the group kernels' lanes' workspaces in a warp-sized block, and the tapes
 // each stages after them
-enum GroupKernel { GK_GJ, GK_G1, GK_MILLER, GK_FQ12, GK_FE, GK_PSI, GK_TAIL, N_GK };
+enum GroupKernel { GK_GJ, GK_G1, GK_MILLER, GK_FQ12, GK_FE, GK_PSI, GK_TAIL, GK_G1S, N_GK };
 constexpr size_t kWorkspace[N_GK] = {
     (32 / GJ_W) * GJ_WS * sizeof(Fp),         (32 / G1_W) * G1_WS * sizeof(Fp),
     (32 / MILLER_W) * MILLER_WS * sizeof(Fp), (32 / FQ12_W) * FQ12_WS * sizeof(Fp),
     (32 / FE_W) * FE_WS * sizeof(Fp),         (32 / PSI_W) * PSI_WS * sizeof(Fp),
-    TAIL_WS * sizeof(Fp)};
+    TAIL_WS * sizeof(Fp),                     (32 / G1_W) * GS_WS * sizeof(Fp)};
 // each kernel's tapes: a range of TapeId
 constexpr int kTapesOf[N_GK][2] = {{TAPE_G1_ADD, TAPE_G1G2_ADD},
                                    {TAPE_G1_DBL, TAPE_G1_ADD},
@@ -268,7 +285,8 @@ constexpr int kTapesOf[N_GK][2] = {{TAPE_G1_ADD, TAPE_G1G2_ADD},
                                    {TAPE_FQ12_MUL, TAPE_FQ12_MUL},
                                    {TAPE_FQ12_MUL, TAPE_FROB3},
                                    {TAPE_PSI_DBL, TAPE_PSI_TAIL},
-                                   {TAPE_G1_ADD, TAPE_G1_ADD}};
+                                   {TAPE_G1_ADD, TAPE_G1_ADD},
+                                   {TAPE_GS_DBL, TAPE_GS_TAIL}};
 Span spans[N_GK];
 
 inline size_t smem_of(int k) {
@@ -305,7 +323,8 @@ int ensure_tapes(cudaStream_t s) {
         (e = allow_smem(k_fq12_mul, smem_of(GK_FQ12))) != cudaSuccess ||
         (e = allow_smem(k_final_exp_hard, smem_of(GK_FE))) != cudaSuccess ||
         (e = allow_smem(k_g2_subgroup, smem_of(GK_PSI))) != cudaSuccess ||
-        (e = allow_smem(k_blinded_final, smem_of(GK_TAIL))) != cudaSuccess)
+        (e = allow_smem(k_blinded_final, smem_of(GK_TAIL))) != cudaSuccess ||
+        (e = allow_smem(k_g1_subgroup, smem_of(GK_G1S))) != cudaSuccess)
         return (int)e;
     tapes_on[dev] = true;
     return 0;
@@ -428,9 +447,12 @@ int lh_g1_affine(const u32* X, const u32* Y, const u32* Z, u32* xa, u32* ya, uin
     return (int)cudaGetLastError();
 }
 
-// affine G1 lanes xp, yp [n, 12] -> membership verdict out [n]
+// affine G1 lanes xp, yp [n, 12] -> membership verdict out [n]; 4 threads a
+// lane, 8 lanes a warp-sized block
 int lh_g1_subgroup(const u32* xp, const u32* yp, uint8_t* out, long long n, void* stream) {
-    k_g1_subgroup<<<blocks(n), kBlock, 0, S(stream)>>>(n, xp, yp, out);
+    if (int rc = ensure_tapes(S(stream))) return rc;
+    k_g1_subgroup<<<(unsigned)((n + 32 / G1_W - 1) / (32 / G1_W)), 32, smem_of(GK_G1S),
+                    S(stream)>>>(n, xp, yp, out, spans[GK_G1S]);
     return (int)cudaGetLastError();
 }
 

@@ -90,11 +90,15 @@ __constant__ u32 PSI_CY_W[2][12] = {
      0xda74d4a7u, 0xd1ca2087u, 0x96cebc1du, 0x2da25966u, 0xbbfd87d2u, 0x0e2b7eedu}};
 // |x| of the curve; the Miller loop runs bits 62..0, the psi check 63..0
 #define BLS_X_ABS 0xd201000000010000ull
-// r - 1 (little-endian words, 255 bits): the G1 membership scan's exponent
-__constant__ u32 RM1_W[8] = {
-    0x00000000u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u, 0x09a1d805u, 0x3339d808u,
-    0x299d7d48u, 0x73eda753u};
-#define BLS_RM1_BITS 255
+// beta, the primitive cube root of unity of Fp whose map (x, y) -> (beta x, y)
+// acts on G1 as [-z^2] (Montgomery; the other root acts as [z^2 - 1]), and
+// the curve's b = 4: the G1 membership lane's constants
+__constant__ u32 BETA_W[12] = {
+    0x798a64e8u, 0x30f1361bu, 0x7ece5a2au, 0xf3b8ddabu, 0xc61577f7u, 0x16a8ca3au,
+    0x74fd029bu, 0xc26a2ff8u, 0x60701c6eu, 0x3636b766u, 0x241b6160u, 0x051ba4abu};
+__constant__ u32 B4_W[12] = {
+    0x000cfff3u, 0xaa270000u, 0xfc34000au, 0x53cc0032u, 0x6b0a807fu, 0x478fe97au,
+    0xe6ba24d7u, 0xb1d37ebeu, 0xbf78ab2fu, 0x8ec9733bu, 0x3d83de7eu, 0x09d64551u};
 // p in signed 30-bit limbs and p^-1 mod 2^30 (csrc/modinv.cuh), and R^3 mod
 // p: a Montgomery product by it turns (aR)^-1 into a^-1 R
 __constant__ int32_t P30[13] = {
@@ -1040,6 +1044,7 @@ enum TapeId {
     TAPE_CYC_SQR,                                          // in0 -> out
     TAPE_FROB1, TAPE_FROB2, TAPE_FROB3,                    // final exp lane, absolute slots
     TAPE_PSI_DBL, TAPE_PSI_ADD, TAPE_PSI_TAIL,             // psi lane, absolute slots
+    TAPE_GS_DBL, TAPE_GS_MADD, TAPE_GS_ADD, TAPE_GS_TAIL,  // G1 membership lane
     N_TAPES
 };
 
@@ -1104,6 +1109,10 @@ enum {
 // psi check: the affine base x, y (Fp2), the constants c (of c_x = c u)
 // and c_y, T = (X, Y, Z), the residues d1, d2, then the temporaries
 enum { PS_X = 0, PS_Y = 2, PS_CX = 4, PS_CY = 5, PS_T = 7, PS_D = 13, PS_TMP = 17 };
+// G1 membership: the lane's affine x, y, the constants beta and b = 4, the
+// second scan's base B (Jacobian), T, the residues d1, d2, d3, then the
+// temporaries
+enum { GS_X = 0, GS_Y = 1, GS_BETA = 2, GS_B4 = 3, GS_B = 4, GS_T = 7, GS_D = 10, GS_TMP = 13 };
 
 // most temporaries a step may take, per lane layout (the builder fails
 // past them)
@@ -1113,12 +1122,14 @@ enum { PS_X = 0, PS_Y = 2, PS_CX = 4, PS_CY = 5, PS_T = 7, PS_D = 13, PS_TMP = 1
 #define FQ12_TEMPS 144
 #define FE_TEMPS FQ12_TEMPS      // the lane runs the Fq12 product's tape too
 #define PSI_TEMPS 48
+#define GS_TEMPS 24
 #define MILLER_WS (MS_TMP + MILLER_TEMPS)
 #define GJ_WS (SM_TMP(1) + GJ_TEMPS)
 #define G1_WS (SM_TMP(0) + G1_TEMPS)
 #define FQ12_WS (FQ_TMP + FQ12_TEMPS)
 #define FE_WS (FE_TMP + FE_TEMPS)
 #define PSI_WS (PS_TMP + PSI_TEMPS)
+#define GS_WS (GS_TMP + GS_TEMPS)
 
 // ---- global memory rows -----------------------------------------------------
 
@@ -1660,30 +1671,90 @@ __device__ __forceinline__ void lane_g1_affine(long g, const u32* X, const u32* 
     g1_affine_out(g, p, xa, ya, inf);
 }
 
-// G1 membership of affine lane i (ec.g1_subgroup_verdict_batch): S = [r-1]P
-// by the fixed MSB-first double-and-add scan of ec._scalar_mul_batch, then
-// d1 = x*Z^2 - X and d2 = y*Z^3 + Y; a member gives S = -P, so d1 == d2 == 0
-// with Z != 0.  Fail-closed: a small-order point that meets the H == 0
-// chord mid-scan drives Z to 0 for good and reads false.
-__device__ __forceinline__ void lane_g1_subgroup(long i, const u32* xp, const u32* yp,
-                                                 uint8_t* out) {
-    Fp x, y, z2, z3, xz, yz, d1, d2;
-    ld(x, xp, i);
-    ld(y, yp, i);
-    Jac<Fp> T;
-    jac_zero(T);
-    bool inf = true;
-#pragma unroll 1
-    for (int b = BLS_RM1_BITS - 1; b >= 0; b--)
-        dbl_add_step(T, inf, x, y, (int)((RM1_W[b / 32] >> (b % 32)) & 1));
-    if (inf) jac_zero(T);
-    fp_mul(z2, T.Z, T.Z);
-    fp_mul(xz, x, z2);
-    fp_mul(z3, z2, T.Z);
+// ---- row 12: G1 membership by the sigma endomorphism ---------------------------
+//
+// Scott's test ("A note on group membership tests for G1, G2 and GT on BLS
+// pairing-friendly curves", 2021; blst's G1 check): a point P of E(Fp) is
+// in G1 exactly when sigma(P) = (beta x, y) equals -[z^2]P, z = -|z| the
+// curve's x.  On G1, sigma is [lambda] for a cube root of unity lambda mod
+// r, and r = z^4 - z^2 + 1 makes -z^2 one of the two: beta is the root of
+// Fp whose sigma gives lambda = -z^2 (the other gives z^2 - 1, and no
+// member passes with it; the CPU tests try both).  [z^2]P is two MSB-first
+// double-and-add scans over |z| (64 bits, 6 set): T1 = [|z|]P from the
+// affine P by the mixed add, then [|z|]T1 by the full Jacobian add.  The
+// tail compares Z^2 beta x with X and Z^3 y with -Y, and checks y^2 = x^3 +
+// 4.
+//
+// Why the verdict is the JAX scan's ([r-1]P == -P,
+// ec.g1_subgroup_verdict_batch), lane for lane:
+// - a member: every add of both scans adds B to [k]B with 2 <= k < 2^64,
+//   never +-B (B has order r > 2^254), and a doubling meets Y = 0 only at
+//   order 2 (r is odd), so no formula meets its exceptional case, both
+//   scans compute [z^2]P and the test reads true, as the JAX scan does;
+// - a point of E(Fp) outside G1: if no formula met its exceptional case,
+//   the scans computed [z^2]P and Scott's theorem reads false; if one did
+//   (an add at T = +-B gives H == 0, a doubling Y == 0), Z became 0, and a
+//   Jacobian double or add of Z == 0 keeps Z == 0 (Z3 = 2YZ; Z3 = 2 Z1 Z2 H
+//   in both adds), so the verdict's Z != 0 reads false; the JAX scan reads
+//   false there too (fail-closed, or [r-1]P == -P forcing the order to
+//   divide r);
+// - a point off the curve: y^2 != x^3 + 4 reads false; the JAX scan runs
+//   its formulas on the curve y^2 = x^3 + b' through the point, where
+//   [r-1]P == -P needs P's order there to divide r, and for the random
+//   points the tests and the ceremony's decoding can give it reads false.
+// So the lane reads true exactly for members (off-curve points: on the
+// inputs above).  The branches read only |z|'s bits: uniform across lanes.
+template <int W>
+__device__ __forceinline__ void lane_g1_subgroup(const Grp& g, const TapeView& T, Fp* ws, long i,
+                                                 const u32* xp, const u32* yp, uint8_t* out) {
+    u32* w = ws[0].w;
+    par(g, W, GS_B * 12, [&](int k) {
+        const int s = k / 12, q = k % 12;
+        w[k] = s == GS_X ? xp[i * 12 + q] : s == GS_Y ? yp[i * 12 + q]
+             : s == GS_BETA ? BETA_W[q] : B4_W[q];
+    });
+    for (int scan = 0; scan < 2; scan++) {
+        for (int b = 63; b >= 0; b--) {
+            if (b < 63) run_tape(g, T, TAPE_GS_DBL, ws, 0, 0, 0, GS_TMP);
+            if (!((BLS_X_ABS >> b) & 1)) continue;
+            if (b == 63) {          // the top bit: T = the base (P with Z = 1, or B)
+                par(g, W, 36, [&](int k) {
+                    w[GS_T * 12 + k] = scan ? w[GS_B * 12 + k]
+                                     : k < 24 ? w[GS_X * 12 + k] : ONE_W[k % 12];
+                });
+            } else if (scan == 0) {
+                run_tape(g, T, TAPE_GS_MADD, ws, GS_X, 0, 0, GS_TMP);
+            } else {
+                run_tape(g, T, TAPE_GS_ADD, ws, 0, 0, 0, GS_TMP);
+            }
+        }
+        if (scan == 0) par(g, W, 36, [&](int k) { w[GS_B * 12 + k] = w[GS_T * 12 + k]; });
+    }
+    run_tape(g, T, TAPE_GS_TAIL, ws, 0, 0, 0, GS_TMP);
+    par(g, 1, 1, [&](int) {
+        out[i] = fp_is_zero(ws[GS_D]) && fp_is_zero(ws[GS_D + 1]) && fp_is_zero(ws[GS_D + 2]) &&
+                 !fp_is_zero(ws[GS_T + 2]);
+    });
+}
+
+// The tail's residues of T = [z^2]P against sigma(P) and the curve:
+// d1 = beta x Z^2 - X, d2 = y Z^3 + Y, d3 = y^2 - x^3 - 4
+template <class B>
+__device__ __forceinline__ void g1_sigma_tail(B& d1, B& d2, B& d3, const B& x, const B& y,
+                                              const B& beta, const B& b4, const Jac<B>& t) {
+    B z2, bx, xz, z3, yz, y2, x2, x3;
+    fp_mul(z2, t.Z, t.Z);
+    fp_mul(bx, beta, x);
+    fp_mul(y2, y, y);
+    fp_mul(x2, x, x);
+    fp_mul(xz, bx, z2);
+    fp_mul(z3, z2, t.Z);
+    fp_mul(x3, x2, x);
     fp_mul(yz, y, z3);
-    fp_sub(d1, xz, T.X);
-    fp_add(d2, yz, T.Y);
-    out[i] = fp_is_zero(d1) && fp_is_zero(d2) && !fp_is_zero(T.Z);
+    fp_sub(d1, xz, t.X);
+    fp_add(d2, yz, t.Y);
+    fp_sub(d3, y2, x3);
+    fp_sub(d3, d3, b4);
 }
 
 // ---- row 9: the hard part of the final exponentiation ------------------------
@@ -2540,6 +2611,40 @@ void build_tapes(Tapes& T, Builder& b) {
         tb_out(b, d2, PS_D + 2);
         tb_finish(b, T, TAPE_PSI_TAIL, PSI_W, PSI_TEMPS);
     }
+    {   // the G1 membership lane's doubling, mixed add (of the affine base at
+        // in0), full add (of the Jacobian base B) and tail (absolute slots)
+        Jac<TV> t, q;
+        TV x, y, beta, b4, d1, d2, d3;
+        tb_begin(b);
+        tb_in(b, t, GS_T);
+        jac_double(t, t);
+        tb_out(b, t, GS_T);
+        tb_finish(b, T, TAPE_GS_DBL, G1_W, GS_TEMPS);
+        tb_begin(b);
+        tb_in(b, t, GS_T);
+        tb_in(b, x, LOC_IN0);
+        tb_in(b, y, LOC_IN0 + 1);
+        jac_madd(t, x, y);
+        tb_out(b, t, GS_T);
+        tb_finish(b, T, TAPE_GS_MADD, G1_W, GS_TEMPS);
+        tb_begin(b);
+        tb_in(b, t, GS_T);
+        tb_in(b, q, GS_B);
+        jac_add_formula(t, t, q);
+        tb_out(b, t, GS_T);
+        tb_finish(b, T, TAPE_GS_ADD, G1_W, GS_TEMPS);
+        tb_begin(b);
+        tb_in(b, x, GS_X);
+        tb_in(b, y, GS_Y);
+        tb_in(b, beta, GS_BETA);
+        tb_in(b, b4, GS_B4);
+        tb_in(b, t, GS_T);
+        g1_sigma_tail(d1, d2, d3, x, y, beta, b4, t);
+        tb_out(b, d1, GS_D);
+        tb_out(b, d2, GS_D + 1);
+        tb_out(b, d3, GS_D + 2);
+        tb_finish(b, T, TAPE_GS_TAIL, G1_W, GS_TEMPS);
+    }
     if (b.error) T.error = 1;
 }
 
@@ -2635,6 +2740,13 @@ inline void host_g2_subgroup(const u32* xq, const u32* yq, uint8_t* out, long n)
     std::vector<Fp> ws(PSI_WS);
     for (long i = 0; i < n; i++)
         lane_g2_subgroup<PSI_W>(Grp{0, 0}, host_view(), ws.data(), i, xq, yq, out);
+}
+
+// k_g1_subgroup
+inline void host_g1_subgroup(const u32* xp, const u32* yp, uint8_t* out, long n) {
+    std::vector<Fp> ws(GS_WS);
+    for (long i = 0; i < n; i++)
+        lane_g1_subgroup<G1_W>(Grp{0, 0}, host_view(), ws.data(), i, xp, yp, out);
 }
 
 // k_blinded_final: per segment the warp's steps, its groups one after

@@ -23,12 +23,12 @@ int lh_build_tapes(void* out) {
 
 // out: the tapes' shape (tape_stats: TAPE_STATS ints), then the Fp slots of
 // a lane's workspace in k_gj_scalar_mul, k_g1_scalar_mul, k_miller,
-// k_fq12_mul(_halves), k_final_exp_hard and k_g2_subgroup, then their group
-// widths
+// k_fq12_mul(_halves), k_final_exp_hard, k_g2_subgroup and k_g1_subgroup,
+// then their group widths
 void lh_tape_stats(int* out) {
     tape_stats(host_tapes(), out);
-    const int more[12] = {GJ_WS, G1_WS, MILLER_WS, FQ12_WS, FE_WS, PSI_WS,
-                          GJ_W,  G1_W,  MILLER_W,  FQ12_W,  FE_W,  PSI_W};
+    const int more[14] = {GJ_WS, G1_WS, MILLER_WS, FQ12_WS, FE_WS, PSI_WS, GS_WS,
+                          GJ_W,  G1_W,  MILLER_W,  FQ12_W,  FE_W,  PSI_W,  G1_W};
     std::memcpy(out + TAPE_STATS, more, sizeof(more));
 }
 

@@ -5,7 +5,7 @@
 // Replaces (lighthouse_tpu/ops/sha256.py):
 //   hash_pairs_device   (:167)  -> k_hash_pairs      via lh_hash_pairs
 //   _fold_levels_device (:196)  -> k_hash_pairs x L  via lh_fold_levels
-//   _fold_to_root_jit   (:410)  -> k_fold_subtrees   via lh_fold_subtrees
+//   _fold_to_root_jit   (:410)  -> k_fold_subtrees   via lh_fold_subtrees (one launch)
 //   sha256_block        (:157)  -> k_sha256_block    via lh_sha256_block
 //
 // What bounds them: integer issue.  One 64-byte pair hash is two
@@ -27,6 +27,26 @@
 // bytes (state and block read, state written), ~11 operations per byte, so
 // it too is issue-bound.  Its schedule is the lane's own (the shuffle's
 // source hashes pad each 37-byte message into its one block on the host).
+
+// k_fold_subtrees (the whole-tree fold, rows 3 and 20) does the same
+// hashes as a flat pass over the tree's levels, but its upper levels have
+// fewer hashes than the card has threads, and each is a hash's latency
+// (about 3 us for a warp alone on an H100, PERF.md).  Its former design (one
+// 512-thread block a 1,024-leaf subtree, a barrier a level, then a second
+// launch over the subroots) kept whole blocks resident while 256, 128, ...,
+// 1 threads worked.  Now each thread folds 2^k consecutive leaves alone
+// (fold_serial: a stack of at most k - 1 subroots in registers, one hash a
+// step), the block folds its threads' subroots in shared memory level by
+// level, thread j hashing nodes 2j and 2j + 1, so that each level's hashes
+// fill whole warps, until 32 remain, which warp 0 folds by shuffles; the
+// last block to finish (a ticket counter the launcher zeroes on the call's
+// stream) folds the block roots in the same launch.  k follows the tree
+// (fold_log_per): 2 leaves a thread up to 2^16 leaves, where the fold is
+// the latency of its levels, up to 32 at 2^20, where its hashes fill the
+// card.  Of the designs timed on an H100 (PERF.md section 6: each warp
+// folding its own subroots by shuffles first, with or without staging the
+// leaves in shared memory, and the top in a second launch), this one was
+// as fast or faster at every width 2^12 to 2^20.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -71,31 +91,105 @@ __global__ void k_sha256_block(const uint32_t* __restrict__ state,
     if (i < n) lane_sha256_block(i, state, block, out);
 }
 
-constexpr int kMaxFoldThreads = 512;
+// ---- k_fold_subtrees: a whole tree to its root in one launch ----------------
 
-// Each block folds one subtree of 2 * blockDim.x leaves to its root: the
-// first level reads the pairs from device memory, every later level stays in
-// shared memory, with a barrier between levels.  The caller repeats the
-// launch over the subroots until one node is left.
-__global__ void __launch_bounds__(kMaxFoldThreads)
-k_fold_subtrees(const uint32_t* __restrict__ leaves, uint32_t* __restrict__ roots) {
-    extern __shared__ uint32_t level[];  // blockDim.x rows of 8 words
-    const int tid = threadIdx.x;
-    uint32_t w[16], h[8];
-    load16(leaves + (16LL * blockDim.x) * blockIdx.x + 16 * tid, w);
-    sha256_pair(w, h);
-    for (int m = blockDim.x >> 1; m >= 1; m >>= 1) {
+constexpr int kFoldThreads = 256;   // threads a block (fewer for a tree of fewer leaves)
+
+// two nodes (16 words) from a pass's source: pass 0's leaves through L1,
+// the block roots of pass 1 from L2 (other blocks wrote them: no stale L1
+// line)
+__device__ __forceinline__ void load16_of(const uint32_t* __restrict__ src, uint32_t w[16],
+                                          bool l2) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) level[8 * tid + j] = h[j];
-        __syncthreads();
-        if (tid < m) {
-#pragma unroll
-            for (int j = 0; j < 16; ++j) w[j] = level[16 * tid + j];
-        }
-        __syncthreads();  // every read of this level is done before the next write
-        if (tid < m) sha256_pair(w, h);
+    for (int i = 0; i < 4; ++i) {
+        uint4 v = l2 ? __ldcg(s + i) : s[i];
+        w[4 * i] = v.x; w[4 * i + 1] = v.y; w[4 * i + 2] = v.z; w[4 * i + 3] = v.w;
     }
-    if (tid == 0) store8(roots + 8LL * blockIdx.x, h);
+}
+
+// A pass of fold_serial and the block's fold (sha256.cuh), then the
+// grid's top: with one block its root goes to out; else to block_roots,
+// and the last block to take a ticket from `counter` (zeroed by the
+// launcher on the launch's stream) runs the second pass over them.  Every
+// thread of the block reaches every barrier; one past a pass's active ones
+// folds nothing.
+template <int K>
+__global__ void __launch_bounds__(kFoldThreads)
+k_fold_subtrees(const uint32_t* __restrict__ leaves, uint32_t* __restrict__ out,
+                uint32_t* block_roots, unsigned* counter, long long n) {
+    __shared__ uint32_t nodes[kFoldThreads][8];
+    __shared__ int last;
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int width = blockDim.x < 32 ? blockDim.x : 32;
+    const unsigned mask = width == 32 ? 0xffffffffu : (1u << width) - 1;
+    FoldShape sh = fold_shape(n, K, blockDim.x);
+    const uint32_t* src = leaves + 8 * sh.per * sh.threads * blockIdx.x;
+#pragma unroll 1
+    for (int pass = 0;; pass++) {
+        uint32_t h[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+        if (tid < sh.threads) {
+            const uint32_t* mine = src + 8 * sh.per * tid;
+            fold_serial<K>(sh.per, [&](long long i, uint32_t w[16]) {
+                load16_of(mine + 16 * i, w, pass > 0);
+            }, h);
+        }
+        // the block's levels in shared memory until 32 nodes remain
+        for (int act = (int)sh.threads; act > 32; act >>= 1) {
+            if (tid < act) {
+#pragma unroll
+                for (int q = 0; q < 8; q++) nodes[tid][q] = h[q];
+            }
+            __syncthreads();
+            if (tid < act / 2) fold_pair(nodes[2 * tid], nodes[2 * tid + 1], h);
+            __syncthreads();    // every read of the level before the next one's writes
+        }
+        // then warp 0's shuffle levels over them
+        if (tid < 32) {
+            const int lanes = sh.threads < 32 ? (int)sh.threads : 32;
+            for (int off = 1; off < lanes; off <<= 1) {
+                uint32_t r[8];
+#pragma unroll
+                for (int q = 0; q < 8; q++) r[q] = __shfl_down_sync(mask, h[q], off);
+                fold_step(lane, off, h, r);
+            }
+        }
+        if (pass == 1 || gridDim.x == 1) {
+            if (tid == 0) store8(out, h);
+            return;
+        }
+        if (tid == 0) {
+            store8(block_roots + 8LL * blockIdx.x, h);
+            __threadfence();    // the root is visible before the ticket
+            last = atomicAdd(counter, 1u) == gridDim.x - 1;
+        }
+        __syncthreads();
+        if (!last) return;
+        sh = fold_top_shape(gridDim.x, blockDim.x);
+        src = block_roots;
+    }
+}
+
+// The fold of n leaves (a power of two, 2 <= n <= fold_capacity) to its
+// root in out by k_fold_subtrees<K>; scratch holds 8 words a block root and
+// the counter after them.
+template <int K>
+cudaError_t launch_fold(const uint32_t* leaves, uint32_t* out, uint32_t* scratch, long long n,
+                        cudaStream_t stream) {
+    if (n < 2 || (n & (n - 1)) || n > fold_capacity(K, kFoldThreads))
+        return cudaErrorInvalidValue;
+    const FoldShape sh = fold_shape(n, K, kFoldThreads);
+    uint32_t* block_roots = nullptr;
+    unsigned* counter = nullptr;
+    if (sh.blocks > 1) {
+        block_roots = scratch;
+        counter = reinterpret_cast<unsigned*>(scratch + 8 * sh.blocks);
+        cudaError_t e = cudaMemsetAsync(counter, 0, sizeof(unsigned), stream);
+        if (e != cudaSuccess) return e;
+    }
+    k_fold_subtrees<K><<<(unsigned)sh.blocks, (unsigned)sh.threads, 0, stream>>>(
+        leaves, out, block_roots, counter, n);
+    return cudaGetLastError();
 }
 
 constexpr int kPairThreads = 256;
@@ -152,19 +246,34 @@ int lh_fold_levels(const void* leaves, void* levels, long long n, void* stream) 
     return (int)cudaGetLastError();
 }
 
-// One pass of the whole-tree fold: n_blocks subtrees of `width` leaves each
-// (width a power of two, 2 <= width <= 1024) -> n_blocks subroots.
-int lh_fold_subtrees(const void* leaves, void* roots, long long n_blocks,
-                     int width, void* stream) {
-    if (width < 2 || width > 2 * kMaxFoldThreads || (width & (width - 1)))
-        return (int)cudaErrorInvalidValue;
-    if (n_blocks > 0) {
-        int threads = width / 2;
-        k_fold_subtrees<<<(unsigned)n_blocks, threads, threads * 8 * sizeof(uint32_t),
-                          static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const uint32_t*>(leaves), static_cast<uint32_t*>(roots));
+// The whole-tree fold's plan for n leaves: [leaves a thread (fold_log_per),
+// threads a block, blocks, the most leaves one launch folds at that many a
+// thread] (the wrapper sizes its scratch by the blocks and raises past the
+// capacity).
+void lh_fold_plan(long long n, long long* plan) {
+    const int k = fold_log_per(n);
+    const FoldShape sh = fold_shape(n, k, kFoldThreads);
+    plan[0] = sh.per;
+    plan[1] = sh.threads;
+    plan[2] = sh.blocks;
+    plan[3] = fold_capacity(k, kFoldThreads);
+}
+
+// A tree of n leaves (a power of two, 2 <= n <= the plan's capacity) to its
+// root in one launch, 2^fold_log_per(n) leaves a thread, the blocks' levels
+// first: leaves uint32[n, 8] -> root uint32[1, 8]; scratch uint32[8 *
+// blocks + 1] (the block roots and the last block's counter).
+int lh_fold_subtrees(const void* leaves, void* root, void* scratch, long long n, void* stream) {
+    const uint32_t* l = static_cast<const uint32_t*>(leaves);
+    uint32_t *o = static_cast<uint32_t*>(root), *sc = static_cast<uint32_t*>(scratch);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (fold_log_per(n)) {
+        case 1: return (int)launch_fold<1>(l, o, sc, n, s);
+        case 2: return (int)launch_fold<2>(l, o, sc, n, s);
+        case 3: return (int)launch_fold<3>(l, o, sc, n, s);
+        case 4: return (int)launch_fold<4>(l, o, sc, n, s);
+        default: return (int)launch_fold<5>(l, o, sc, n, s);
     }
-    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

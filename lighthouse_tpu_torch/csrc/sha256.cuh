@@ -10,6 +10,8 @@
 #include <cstdint>
 
 #ifndef __CUDACC__
+#include <vector>
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __constant__
@@ -113,5 +115,165 @@ __device__ __forceinline__ void lane_sha256_block(long long i, const uint32_t* s
 #pragma unroll
     for (int j = 0; j < 8; ++j) out[8 * i + j] = st[j];
 }
+
+// ---- the whole-tree fold (k_fold_subtrees) -----------------------------------
+//
+// A pass folds `nodes` nodes (a power of two, at least 2) over a grid of
+// blocks: each active thread folds `per` consecutive nodes to their subroot
+// alone (fold_serial), then the block folds its threads' subroots: level by
+// level in shared memory (fold_pair) until 32 remain, then warp 0 by
+// shuffles (fold_step at offsets 1, 2, ..., 16).  With one block that is
+// the tree's root; else each block's root is one of the
+// pass's block roots, and the last block to finish runs a second pass over
+// them.
+
+// the layout of a pass: nodes a thread, active threads a block, blocks
+struct FoldShape {
+    long long per, threads, blocks;
+};
+
+// the first pass over n leaves: 2^log_per leaves a thread (all n when the
+// tree is smaller), at most max_threads threads a block
+__host__ __device__ __forceinline__ FoldShape fold_shape(long long n, int log_per,
+                                                        long long max_threads) {
+    const long long per = n < (1LL << log_per) ? n : 1LL << log_per;
+    const long long threads = n / per < max_threads ? n / per : max_threads;
+    return FoldShape{per, threads, n / (per * threads)};
+}
+
+// The leaves a thread for a tree of n leaves, as 2^k: the fastest of
+// chip_ab.py's sweep at every width 2^12 to 2^20 (PERF.md): 2 up to 2^16
+// leaves, where a fold is the latency of its levels, then twice as many a
+// thread for each doubling of the tree, up to 32 from 2^20 on.
+__host__ __device__ __forceinline__ int fold_log_per(long long n) {
+    int lg = 0;
+    while ((2LL << lg) <= n) lg++;
+    return lg <= 16 ? 1 : lg >= 20 ? 5 : lg - 15;
+}
+
+// the second pass, over a grid's `blocks` block roots in one block of
+// `threads` threads: at least 2 roots a thread
+__host__ __device__ __forceinline__ FoldShape fold_top_shape(long long blocks,
+                                                            long long threads) {
+    const long long per = blocks / threads > 2 ? blocks / threads : 2;
+    return FoldShape{per, blocks / per, 1};
+}
+
+// the most leaves one launch folds to its root: the second pass's threads
+// take at most 2^log_per roots each
+__host__ __device__ __forceinline__ long long fold_capacity(int log_per,
+                                                           long long max_threads) {
+    return (max_threads << log_per) * (max_threads << log_per);
+}
+
+// Fold `per` consecutive nodes (a power of two, 2 <= per <= 2^K) to their
+// subroot h in post-order: pair i of nodes (2i, 2i + 1) is hashed, then
+// merged with the left subtrees that the stack holds while the bits of i
+// say one waits (level j waits when bit j of i is set).  One hash a step,
+// so the compression is inlined once; the stack's entries are selected by
+// an unrolled loop (constant register indices).  load(i, w) puts nodes 2i
+// and 2i + 1 in w[0..15].
+template <int K, class Load>
+__device__ __forceinline__ void fold_serial(long long per, Load load, uint32_t h[8]) {
+    constexpr int S = K > 1 ? K - 1 : 1;      // left subtrees waiting: at most K - 1
+    uint32_t stk[S][8];
+    long long i = 0;
+    int lvl = -1;                              // >= 0: the next step merges h with stk[lvl]
+#pragma unroll 1
+    for (long long s = 0; s < per - 1; s++) {
+        uint32_t w[16];
+        if (lvl < 0) {
+            load(i, w);
+        } else {
+#pragma unroll
+            for (int j = 0; j < S; j++)
+                if (j == lvl) {
+#pragma unroll
+                    for (int q = 0; q < 8; q++) w[q] = stk[j][q];
+                }
+#pragma unroll
+            for (int q = 0; q < 8; q++) w[8 + q] = h[q];
+        }
+        sha256_pair(w, h);
+        const int next = lvl + 1;                  // h is a subtree of 2^(next + 1) pairs' level
+        if ((i >> next) & 1) {
+            lvl = next;
+        } else {
+#pragma unroll
+            for (int j = 0; j < S; j++)
+                if (j == next) {
+#pragma unroll
+                    for (int q = 0; q < 8; q++) stk[j][q] = h[q];
+                }
+            lvl = -1;
+            i++;
+        }
+    }
+}
+
+// nodes left and right (8 words each) -> their parent h
+__device__ __forceinline__ void fold_pair(const uint32_t* left, const uint32_t* right,
+                                          uint32_t h[8]) {
+    uint32_t w[16];
+#pragma unroll
+    for (int q = 0; q < 8; q++) {
+        w[q] = left[q];
+        w[8 + q] = right[q];
+    }
+    sha256_pair(w, h);
+}
+
+// One level of a warp's fold, at offset `off` (1, 2, 4, ...): lane l with
+// l % (2 off) == 0 hashes its node h with lane l + off's (`right`).
+__device__ __forceinline__ void fold_step(int lane, int off, uint32_t h[8],
+                                          const uint32_t right[8]) {
+    if (lane & (2 * off - 1)) return;
+    fold_pair(h, right, h);
+}
+
+#ifndef __CUDACC__
+// One pass of k_fold_subtrees on the host (the CPU tests' model of
+// csrc/sha256.cu): each block's threads and levels as loops, the block's
+// levels in shared memory until 32 nodes remain, then warp 0's shuffles, a
+// lane's shuffle partner read from the level's values (a lane that hashes
+// reads one that does not write in that level).  -> a block root each.
+template <int K>
+inline void host_fold_pass(const uint32_t* src, const FoldShape& sh, uint32_t* roots) {
+    std::vector<uint32_t> h(8 * sh.threads), level(8 * sh.threads);
+    for (long long b = 0; b < sh.blocks; b++) {
+        for (long long t = 0; t < sh.threads; t++) {
+            const uint32_t* mine = src + 8 * (b * sh.threads + t) * sh.per;
+            fold_serial<K>(sh.per, [&](long long i, uint32_t w[16]) {
+                for (int q = 0; q < 16; q++) w[q] = mine[16 * i + q];
+            }, &h[8 * t]);
+        }
+        long long act = sh.threads;
+        for (; act > 32; act >>= 1) {
+            level = h;
+            for (long long j = 0; j < act / 2; j++)
+                fold_pair(&level[16 * j], &level[16 * j + 8], &h[8 * j]);
+        }
+        for (int off = 1; off < act; off <<= 1)
+            for (long long l = 0; l + off < act; l++)
+                fold_step((int)l, off, &h[8 * l], &h[8 * (l + off)]);
+        for (int q = 0; q < 8; q++) roots[8 * b + q] = h[q];
+    }
+}
+
+// k_fold_subtrees' passes on the host: leaves uint32[n, 8] (n a power of
+// two, 2 <= n <= fold_capacity) -> root[8]
+template <int K>
+inline void host_fold_subtrees(const uint32_t* leaves, long long n, long long max_threads,
+                               uint32_t* root) {
+    const FoldShape sh = fold_shape(n, K, max_threads);
+    std::vector<uint32_t> block_roots(8 * sh.blocks);
+    host_fold_pass<K>(leaves, sh, block_roots.data());
+    if (sh.blocks == 1) {
+        for (int q = 0; q < 8; q++) root[q] = block_roots[q];
+        return;
+    }
+    host_fold_pass<K>(block_roots.data(), fold_top_shape(sh.blocks, sh.threads), root);
+}
+#endif
 
 }  // namespace sha

@@ -239,9 +239,11 @@ def g1_subgroup_plain(xp: torch.Tensor, yp: torch.Tensor) -> torch.Tensor:
 
 
 def g1_subgroup_device(xp: torch.Tensor, yp: torch.Tensor) -> torch.Tensor:
-    """[r-1]P == -P per affine G1 lane (int32 [N, 12] each) -> bool[N].
+    """G1 membership per affine G1 lane (int32 [N, 12] each) -> bool[N],
+    the verdict of ``g1_subgroup_plain`` ([r-1]P == -P) lane for lane.
     Replaces ``lighthouse_tpu/ops/bls_backend.py:207`` ``_g1_subgroup_kernel``.
-    One thread per lane runs the fixed 255-bit double-and-add scan; bound:
+    Four threads a lane run Scott's test sigma(P) == -[z^2]P over tapes
+    (``csrc/bls12_381.cuh`` ``lane_g1_subgroup``); bound:
     ``bls_cuda.G1_SUBGROUP_LANE`` Fp products a lane."""
     bls_cuda.check(xp, (bi.L,), "g1_subgroup xp")
     bls_cuda.check(yp, (bi.L,), "g1_subgroup yp")

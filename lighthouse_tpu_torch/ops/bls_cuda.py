@@ -27,7 +27,6 @@ import ctypes
 import numpy as np
 import torch
 
-from lighthouse_tpu_torch.crypto.bls.fields import R as GROUP_R
 from lighthouse_tpu_torch.native import build_cuda_lib, build_host_lib
 from lighthouse_tpu_torch.ops import modinv
 from lighthouse_tpu_torch.ops.bigint import P_INT
@@ -84,11 +83,12 @@ MILLER_ADD = 19 * FP2_MUL + LINE_MUL
 MILLER_LANE = 17 + 63 * MILLER_DBL + _X_ADDS * MILLER_ADD
 PSI_LANE = (63 * JAC_DOUBLE + _X_ADDS * 11 + 5) * FP2_MUL + 2
 FP_INV = 381 + bin(P_INT - 2).count("1")
-_R_MINUS_1 = GROUP_R - 1
-# [r-1]P: 254 doublings after the top bit, a mixed add (11 products) per
-# later set bit, then the residues' 4 products
-G1_SUBGROUP_LANE = ((_R_MINUS_1.bit_length() - 1) * JAC_DOUBLE
-                    + (bin(_R_MINUS_1).count("1") - 1) * 11 + 4)
+# row 12's sigma test, [z^2]P as two scans over |z|: 63 doublings each, a
+# mixed add (11 products) on each set bit below the top one in the first
+# and a full add in the second, then the tail's 8 (beta x, the residues'
+# 4, the curve's 3)
+JAC_MADD = 11
+G1_SUBGROUP_LANE = 2 * 63 * JAC_DOUBLE + _X_ADDS * (JAC_MADD + JAC_ADD) + 8
 
 
 # row 9, one lane: five x-ladders (63 cyclotomic squares of 9 Fp2 squares
@@ -109,6 +109,10 @@ FINAL_EXP_HARD_TAPES = {"cyc_sqr": 5 * 63 + 2, "fq12_mul": 5 * _X_ADDS + 8, "fro
 FINAL_EXP_HARD_OTHER_LEVELS = 1 + 5 * 2 + 2 + 1
 PSI_TAPES = {"psi_dbl": 63, "psi_add": _X_ADDS, "psi_tail": 1}
 PSI_OTHER_LEVELS = 3
+# row 12's lane: the loads, the two scans' top-bit loads, the copy of T1,
+# the verdict
+G1_SUBGROUP_TAPES = {"gs_dbl": 126, "gs_madd": _X_ADDS, "gs_add": _X_ADDS, "gs_tail": 1}
+G1_SUBGROUP_OTHER_LEVELS = 5
 
 
 def _track_fp_muls(digits: np.ndarray) -> np.ndarray:
@@ -226,12 +230,13 @@ def tapes_lib() -> ctypes.CDLL:
 
 TAPE_NAMES = ("miller_setup", "miller_dbl", "miller_add", "g1_dbl", "g1_add", "g2_add",
               "g1g2_dbl", "g1g2_add", "fq12_mul", "cyc_sqr", "frob1", "frob2", "frob3",
-              "psi_dbl", "psi_add", "psi_tail")
+              "psi_dbl", "psi_add", "psi_tail", "gs_dbl", "gs_madd", "gs_add", "gs_tail")
 GROUP_KERNELS = ("k_gj_scalar_mul", "k_g1_scalar_mul", "k_miller", "k_fq12_mul",
-                 "k_final_exp_hard", "k_g2_subgroup")
+                 "k_final_exp_hard", "k_g2_subgroup", "k_g1_subgroup")
 GROUP_TAPES = {"k_gj_scalar_mul": TAPE_NAMES[4:8], "k_g1_scalar_mul": TAPE_NAMES[3:5],
                "k_miller": TAPE_NAMES[0:3], "k_fq12_mul": TAPE_NAMES[8:9],
-               "k_final_exp_hard": TAPE_NAMES[8:13], "k_g2_subgroup": TAPE_NAMES[13:16]}
+               "k_final_exp_hard": TAPE_NAMES[8:13], "k_g2_subgroup": TAPE_NAMES[13:16],
+               "k_g1_subgroup": TAPE_NAMES[16:20]}
 
 
 def lane_shape(stats: dict, plan: dict, other_levels: int) -> dict:

@@ -21,6 +21,7 @@ PyTorch version beside it.  Small trees and levels stay on the host
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 
 import numpy as np
@@ -186,20 +187,19 @@ def fold_to_root_plain(leaves: torch.Tensor) -> torch.Tensor:
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
-_SUBTREE_WIDTH = 1024   # leaves one k_fold_subtrees block folds in shared memory
-
-
 def _lib() -> ctypes.CDLL:
     lib = build_cuda_lib("sha256")
     if lib.lh_hash_pairs.argtypes is None:
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
         lib.lh_hash_pairs.argtypes = [ptr, ptr, i64, ptr]
         lib.lh_fold_levels.argtypes = [ptr, ptr, i64, ptr]
-        lib.lh_fold_subtrees.argtypes = [ptr, ptr, i64, i32, ptr]
+        lib.lh_fold_subtrees.argtypes = [ptr, ptr, ptr, i64, ptr]
         lib.lh_sha256_block.argtypes = [ptr, ptr, ptr, i64, ptr]
         for fn in (lib.lh_hash_pairs, lib.lh_fold_levels, lib.lh_fold_subtrees,
                    lib.lh_sha256_block):
             fn.restype = ctypes.c_int
+        lib.lh_fold_plan.argtypes = [i64, ptr]
+        lib.lh_fold_plan.restype = None
         lib.lh_error_string.argtypes = [ctypes.c_int]
         lib.lh_error_string.restype = ctypes.c_char_p
     return lib
@@ -269,26 +269,39 @@ def fold_levels_device(leaves: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def fold_plan(n: int) -> dict:
+    """``k_fold_subtrees``' layout for a tree of n leaves: leaves a thread,
+    threads a block, blocks, and the most leaves one launch folds."""
+    plan = (ctypes.c_longlong * 4)()
+    _lib().lh_fold_plan(n, plan)
+    return dict(zip(("per", "threads", "blocks", "capacity"), plan))
+
+
 def fold_to_root_device(leaves: torch.Tensor) -> torch.Tensor:
     """Whole-tree fold: int32[n, 8] (n a power of two) -> int32[1, 8].
-    Replaces ``lighthouse_tpu/ops/sha256.py:410``: each launch folds subtrees
-    of up to 1024 leaves in shared memory, repeated over the subroots."""
+    Replaces ``lighthouse_tpu/ops/sha256.py:410``: one launch; each thread
+    folds 2 to 32 leaves (``fold_plan``), each block its threads' subroots,
+    and the last block to finish the block roots (``csrc/sha256.cu``); a
+    tree past one launch's capacity (2^26 leaves) raises."""
     _check_words(leaves, 8, "fold_to_root", pow2=True)
     if leaves.device.type == "cpu":
         return fold_to_root_plain(leaves)
-    x = leaves
-    if x.shape[0] > 1:
-        fold_to_root_device.calls += 1
+    n = leaves.shape[0]
+    if n == 1:
+        return leaves.clone()
     with torch.cuda.device(leaves.device):
-        while x.shape[0] > 1:
-            width = min(x.shape[0], _SUBTREE_WIDTH)
-            roots = torch.empty((x.shape[0] // width, 8), dtype=torch.int32,
-                                device=x.device)
-            _launch("lh_fold_subtrees", x.data_ptr(), roots.data_ptr(),
-                    roots.shape[0], width, _stream(x))
-            fold_to_root_device.launches += 1
-            x = roots
-    return x if x is not leaves else leaves.clone()
+        plan = fold_plan(n)
+        if n > plan["capacity"]:
+            raise ValueError(f"fold_to_root: {n} leaves exceed one launch's "
+                             f"{plan['capacity']}")
+        # the root, then the block roots and the last block's counter
+        buf = torch.empty(8 * (plan["blocks"] + 1) + 1, dtype=torch.int32, device=leaves.device)
+        _launch("lh_fold_subtrees", leaves.data_ptr(), buf.data_ptr(), buf.data_ptr() + 32, n,
+                _stream(leaves))
+    fold_to_root_device.launches += 1
+    fold_to_root_device.calls += 1
+    return buf[:8].view(1, 8)
 
 
 def sha256_block_device(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,10 @@ marked ``cuda`` holds the CUDA kernels against the plain versions on a card.
 Every comparison is bit-exact (tolerance 0): SHA-256 is integer arithmetic.
 """
 
+import ctypes
 import hashlib
 import re
+import subprocess
 from pathlib import Path
 
 import jax  # noqa: F401  (both frameworks in one process; JAX stays on the CPU)
@@ -85,6 +87,77 @@ def test_fold_to_root_matches_jax_and_hashlib(n):
     want = _hashlib_levels(leaves)[-1] if n > 1 else leaves
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, np.asarray(jsha._fold_to_root_jit(leaves)))
+
+
+FOLD_HARNESS = r"""
+#include "sha256.cuh"
+extern "C" int h_fold(const uint32_t* leaves, long long n, int k, long long threads,
+                      uint32_t* root) {
+    if (n > sha::fold_capacity(k, threads)) return 1;
+    switch (k) {
+        case 1: sha::host_fold_subtrees<1>(leaves, n, threads, root); return 0;
+        case 2: sha::host_fold_subtrees<2>(leaves, n, threads, root); return 0;
+        case 3: sha::host_fold_subtrees<3>(leaves, n, threads, root); return 0;
+        case 4: sha::host_fold_subtrees<4>(leaves, n, threads, root); return 0;
+        case 5: sha::host_fold_subtrees<5>(leaves, n, threads, root); return 0;
+    }
+    return 2;
+}
+extern "C" long long h_fold_plan(long long n, long long* cap) {
+    const int k = sha::fold_log_per(n);
+    *cap = sha::fold_capacity(k, 256);
+    return k;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def fold_model(tmp_path_factory):
+    """``k_fold_subtrees``' passes as ``sha256.cuh``'s host model runs them
+    (``host_fold_subtrees``: each block's threads, shared-memory levels and
+    warp 0's shuffle levels as loops), built with g++."""
+    d = tmp_path_factory.mktemp("fold_model")
+    (d / "h.cc").write_text(FOLD_HARNESS)
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas",
+                    f"-I{CSRC.parent}", str(d / "h.cc"), "-o", str(d / "h.so")], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(d / "h.so"))
+    lib.h_fold.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_void_p]
+    return lib
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("log_n", range(1, 13))
+def test_fold_subtrees_model_matches_hashlib_and_jax(fold_model, k, log_n):
+    """2^k leaves a thread, at every width 2 to 2^12: at the kernel's 256
+    threads a block (one block up to 2^(k+8) leaves) and at 16 and 64 (a
+    part of a warp, two warps: many blocks and the last block's second pass
+    over their roots) where one launch takes the tree, the root equals
+    hashlib's and the JAX fold's."""
+    n = 1 << log_n
+    leaves = _words(n, 8, seed=400 + n)
+    want = _hashlib_levels(leaves)[-1]
+    np.testing.assert_array_equal(want, np.asarray(jsha._fold_to_root_jit(leaves)))
+    for threads in (256, 64, 16):
+        if n > (threads << k) ** 2:     # past one launch's capacity
+            continue
+        root = np.zeros((1, 8), np.uint32)
+        assert fold_model.h_fold(leaves.ctypes.data, n, k, threads, root.ctypes.data) == 0
+        np.testing.assert_array_equal(root, want)
+
+
+def test_fold_plan_takes_the_measured_leaves_a_thread(fold_model):
+    """2 leaves a thread up to 2^16 leaves, then twice as many for each
+    doubling, 32 from 2^20 on; one launch takes every width up to 2^26."""
+    fold_model.h_fold_plan.restype = ctypes.c_longlong
+    cap = ctypes.c_longlong()
+    got = {}
+    for log_n in range(1, 27):
+        got[log_n] = fold_model.h_fold_plan(1 << log_n, ctypes.byref(cap))
+        assert cap.value >= 1 << log_n
+    assert got == {**{g: 1 for g in range(1, 17)}, 17: 2, 18: 3, 19: 4,
+                   **{g: 5 for g in range(20, 27)}}
 
 
 @pytest.mark.parametrize("route", ["fold", "levels", "host"])
@@ -170,4 +243,11 @@ def test_kernels_match_plain_versions_on_the_card():
                                tsha.fold_levels_plain(leaves), rtol=0, atol=0)
     torch.testing.assert_close(tsha.fold_to_root_device(leaves),
                                tsha.fold_to_root_plain(leaves), rtol=0, atol=0)
-    assert [k.launches for k in tsha.KERNELS] == [1, 12, 2]
+    # every width from 1 to 2^12 leaves in one launch (none for 1)
+    for log_n in range(13):
+        x = leaves[:1 << log_n].contiguous()
+        before = tsha.fold_to_root_device.launches
+        got = tsha.fold_to_root_device(x)
+        assert tsha.fold_to_root_device.launches == before + (log_n > 0)
+        assert torch.equal(got, tsha.fold_to_root_plain(x))
+    assert [k.launches for k in tsha.KERNELS] == [1, 12, 13]
