@@ -2,7 +2,7 @@
 """Time chosen rows of the kernel table (``PERF.md`` §6) in two checkouts
 of the port on one card, in turns.
 
-    python3 chip_ab.py OLD_TREE NEW_TREE [--rows 3,8,12,15,20]
+    python3 chip_ab.py OLD_TREE NEW_TREE [--rows 3,8,12,15,16,18,20]
 
 Each tree is the root of a checkout (``git archive`` of a commit unpacked
 anywhere); its ``lighthouse_tpu_torch`` is imported and built in a process
@@ -22,7 +22,12 @@ CUDA-event means at the main path's shapes (``chip_smoke.py``'s seeds):
 - row 3 at 2^12, 2^16 and 2^20 random leaves (also its device time alone,
   the calls queued behind a spin kernel);
 - row 20 over a mesh naming the card 4 times, at 2^20 random leaves and at
-  the JAX package's dry-run shape (64 leaves a shard).
+  the JAX package's dry-run shape (64 leaves a shard);
+- row 16 at the 768-blob batch's 768 x 4096 elements (also its device time
+  alone, behind a spin kernel);
+- row 18 at the new epoch's 944,080 positions of ``chip_smoke.py``'s
+  2^20-validator state, at 2^20, 2^21 and its 2^22 capacity (90 rounds,
+  random pivots and decision bytes; also its device time alone).
 
 Every kernel is first held to its plain version (tolerance 0; row 12 also
 on a point outside G1, both points of order 3 and a point off the curve,
@@ -41,7 +46,10 @@ KZG_SEED = 11                # chip_smoke.py's 768-blob batch
 KZG_WIDTH = 4096
 KZG_BLOBS = 768
 SHA_SEED = 20240313          # chip_smoke.py's SEED
-ROWS = (3, 8, 12, 15, 20)
+EPOCH_SEED = 20240315        # chip_smoke.py's epoch seed
+SHUFFLE_COUNTS = (944_080, 1 << 20, 1 << 21, 1 << 22)
+SHUFFLE_ROUNDS = 90
+ROWS = (3, 8, 12, 15, 16, 18, 20)
 
 
 def one(tree: str, rows: tuple) -> dict:
@@ -81,6 +89,10 @@ def one(tree: str, rows: tuple) -> dict:
         out.update(row12(torch, T, kzg, bb, dev, ms))
     if 3 in rows or 20 in rows:
         out.update(rows_3_20(torch, np, rows, dev, ms))
+    if 16 in rows:
+        out.update(row16(torch, np, fr, dev, ms))
+    if 18 in rows:
+        out.update(row18(torch, np, dev, ms))
     out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"], capture_output=True, text=True,
                                  check=True).stdout.strip()
@@ -146,6 +158,36 @@ def row15(torch, np, kzg, bi, fr, dev, ms) -> dict:
         raise SystemExit("row 15 disagrees with its plain version")
     return {"row15_ms": {str(k): ms(lambda: fr.eval_device(f_m[:k], z_t[:k], roots_t, invw_t),
                                     10) for k in (n, 1, 132, 264)}}
+
+
+def row16(torch, np, fr, dev, ms) -> dict:
+    rng = np.random.default_rng(KZG_SEED)
+    raw = rng.integers(0, 256, (KZG_BLOBS, KZG_WIDTH, 32), dtype=np.uint8)
+    raw[..., 0] &= 0x3F
+    raw_t = torch.from_numpy(raw).to(dev)
+    if not torch.equal(fr.fr_to_mont_device(raw_t), fr.fr_to_mont_plain(raw_t)):
+        raise SystemExit("row 16 disagrees with its plain version")
+    return {"row16_ms": ms(lambda: fr.fr_to_mont_device(raw_t), 50),
+            "row16_device_ms": device_ms(torch, lambda: fr.fr_to_mont_device(raw_t), 50)}
+
+
+def row18(torch, np, dev, ms) -> dict:
+    from lighthouse_tpu_torch.ops import epoch_kernels as ek
+
+    rng = np.random.default_rng(EPOCH_SEED)
+    out = {"row18_ms": {}, "row18_device_ms": {}}
+    for count in SHUFFLE_COUNTS:
+        row_bytes = (count + 255) // 256 * 32
+        src = torch.from_numpy(rng.integers(0, 256, (SHUFFLE_ROUNDS, row_bytes),
+                                            dtype=np.uint8)).to(dev)
+        piv = torch.from_numpy(rng.integers(0, count, SHUFFLE_ROUNDS).astype(np.int32)).to(dev)
+        if not torch.equal(ek.shuffle_rounds(piv, src, count),
+                           ek.shuffle_rounds_plain(piv, src, count)):
+            raise SystemExit(f"row 18 disagrees with its plain version at {count} positions")
+        out["row18_ms"][str(count)] = ms(lambda: ek.shuffle_rounds(piv, src, count), 20)
+        out["row18_device_ms"][str(count)] = device_ms(
+            torch, lambda: ek.shuffle_rounds(piv, src, count), 20)
+    return out
 
 
 def row12(torch, T, kzg, bb, dev, ms) -> dict:

@@ -60,9 +60,12 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    tolerance 0 (integer arithmetic), on a 2^20-validator mainnet Deneb
    state at the last slot of an epoch (``testing.epoch_state``): the fused
    epoch pass over its 2^20 lanes, the shuffle rounds over the new epoch's
-   active set (and over 2^20 positions), and the single-block SHA-256 over
-   the shuffle's source messages, also against hashlib; the shuffle also
-   against ``compute_shuffled_index`` at sampled positions.
+   active set (and over 2^20 and 2^21 positions: a row of decision bytes
+   larger than one block's shared memory), and the single-block SHA-256
+   over the shuffle's source messages, also against hashlib; the shuffle
+   also against ``compute_shuffled_index`` at sampled positions; first both
+   epoch kernels' ptxas lines (a stack frame or spill in
+   ``k_shuffle_rounds`` fails the run).
 9. The epoch main path, once for each fill of ``testing.epoch_state``:
    the stress fill of phase 8, then a mainnet-shaped registry (what a
    node crosses every epoch).  With the tree cache attached,
@@ -81,9 +84,12 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     in one segment and interleaved in two, the fused check over its 4096
     lanes, and the Miller product of 2 pairs padded to 4 lanes; first the
     ptxas lines of the path's kernels (a group kernel that spills fails the
-    run, and so does a stack frame or spill in ``k_fr_eval``) and the
-    evaluation's blocks resident an SM; last edge batches, compared only:
-    the fold at one lane and with every scalar zero.
+    run, and so does a stack frame or spill in ``k_fr_eval`` or
+    ``k_fr_to_mont``) and the evaluation's blocks resident an SM; last
+    edge batches, compared only: raw to Montgomery over all but 5 of the
+    batch's elements and over 7 (counts that are not a multiple of the
+    kernel's 4 elements a thread), the fold at one lane and with every
+    scalar zero.
 11. The KZG main path (BASELINE config 5, as the JAX package's
     ``bench.py`` builds it): ``KzgSettings.dev(4096)``, the 6 unique blobs'
     commitments and proofs (checked against p(τ), q(τ) and the host
@@ -769,7 +775,7 @@ GROUP_KERNELS = ("k_gj_scalar_mul", "k_g1_scalar_mul", "k_g1_gather_scalar_mul",
                  "k_g1_subgroup")
 # Kernels whose values must all stay in registers or shared memory (rows 8
 # and 15's redesign): a stack frame or a spill in either fails the run.
-NO_STACK_KERNELS = ("k_blinded_final", "k_fr_eval")
+NO_STACK_KERNELS = ("k_blinded_final", "k_fr_eval", "k_fr_to_mont", "k_shuffle_rounds")
 BLS_KERNELS = GROUP_KERNELS + ("k_g1_add_halves", "k_g2_add_halves", "k_blinded_final",
                                "k_g1_affine", "k_fp_mul_chain")
 
@@ -939,9 +945,7 @@ def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> dict
 
     # -- 8. epoch kernels against their plain versions ----------------------
     log(f"build epoch.cu {build_s['epoch']:.3f} s (built in parallel in phase 1)")
-    for line in native.build_log("epoch").splitlines():
-        if "Used" in line or ("spill" in line and "0 bytes spill stores" not in line):
-            log(f"  {line.strip()}")
+    ptxas_report(native, "epoch", ("k_fused_epoch_pass", "k_shuffle_rounds"))
 
     def cuda_ms(fn, reps: int) -> float:
         fn()
@@ -991,6 +995,10 @@ def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> dict
     full_src = sha.sha256_msgs(shuffle.source_messages(full_seed, rounds, N_FULL), device=dev)
     full_piv = torch.from_numpy(rng.integers(0, N_FULL, rounds).astype(np.int32)).to(dev)
     full_src_t = torch.from_numpy(full_src.reshape(rounds, -1)).to(dev)
+    n_wide = 2 * N_FULL
+    wide_src = sha.sha256_msgs(shuffle.source_messages(rng.bytes(32), rounds, n_wide), device=dev)
+    wide_piv = torch.from_numpy(rng.integers(0, n_wide, rounds).astype(np.int32)).to(dev)
+    wide_src_t = torch.from_numpy(wide_src.reshape(rounds, -1)).to(dev)
 
     cases = [
         # key, label, kernel, plain, args, ops, bytes, source, replaces, reps
@@ -1005,6 +1013,10 @@ def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> dict
         ("shuffle_rounds@2^20", f"shuffle_rounds [{N_FULL} positions, {rounds} rounds]",
          ek.shuffle_rounds, ek.shuffle_rounds_plain, (full_piv, full_src_t, N_FULL),
          N_FULL * rounds * ek.SHUFFLE_OPS_PER_ROUND, full_src.size + 4 * rounds + 4 * N_FULL,
+         "", "", 20),
+        ("shuffle_rounds@2^21", f"shuffle_rounds [{n_wide} positions, {rounds} rounds]",
+         ek.shuffle_rounds, ek.shuffle_rounds_plain, (wide_piv, wide_src_t, n_wide),
+         n_wide * rounds * ek.SHUFFLE_OPS_PER_ROUND, wide_src.size + 4 * rounds + 4 * n_wide,
          "", "", 20),
         ("sha256_block", f"sha256_block [{msgs.shape[0]} lanes]", sha.sha256_block_device,
          sha.sha256_block_plain, (sha_state, sha_block), msgs.shape[0] * sha.OPS_PER_BLOCK,
@@ -1044,7 +1056,7 @@ def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> dict
         raise SystemExit("shuffle_rounds: kernel disagrees with compute_shuffled_index")
     log(f"sha256_block == hashlib on all {msgs.shape[0]} source messages; shuffle_rounds == "
         f"compute_shuffled_index at {sample.size} sampled positions")
-    del args, cases, sha_state, sha_block, full_src_t, piv_t, src_t
+    del args, cases, sha_state, sha_block, full_src_t, wide_src_t, piv_t, src_t
     from lighthouse_tpu_torch.types.registry import ValidatorRegistryType
 
     # after phase 8's own counts; phase 9 reads its counts over its run alone
@@ -1322,7 +1334,11 @@ def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> tuple:
     # zero (the Miller and Fq12 lanes' edges ran in phase 6; the card tests
     # hold rows 10 and 14 to their plain versions on theirs)
     t_edges = time.perf_counter()
-    edges = [("g1_fold [1 lane]", msm.fold_device, msm.fold_plain,
+    flat = raw_t.view(-1, 32)
+    edges = [(f"fr_to_mont [{flat.shape[0] - 5}]", fr.fr_to_mont_device, fr.fr_to_mont_plain,
+              (flat[:-5],)),
+             ("fr_to_mont [7]", fr.fr_to_mont_device, fr.fr_to_mont_plain, (flat[:7],)),
+             ("g1_fold [1 lane]", msm.fold_device, msm.fold_plain,
               (xs[:1], ys[:1], digits[:, :1].contiguous(), 1)),
              ("g1_fold [4 lanes, every scalar zero]", msm.fold_device, msm.fold_plain,
               (xs[:4], ys[:4], torch.zeros_like(digits[:, :4]), 2))]

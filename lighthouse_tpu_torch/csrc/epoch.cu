@@ -13,16 +13,33 @@
 // 1,936 bytes for Deneb's k = 33) are copied into shared memory by every
 // block, so each lane's gathers hit shared memory, not device memory.
 //
-// k_shuffle_rounds: one thread per position walks all rounds.  The pivots
-// sit in shared memory; the per-round source-byte plane (rounds x count / 8
-// bytes, 11.8 MB at 2^20 positions and 90 rounds) is read through L2, which
-// holds it whole.  About 10 int32 operations per round and lane against one
-// byte load: bound by integer issue.  The rounds of one position are a
-// dependent chain; the card hides the load latency with other warps.
+// k_shuffle_rounds: every round of every position, round by round.  One
+// byte load per round and position at a data-dependent address.  Read
+// through L2 (the parent's design: a thread per position walking all
+// rounds), each load is a 32-byte sector request that uses 1 byte, 2.7 GB of
+// requests for the 10.6 MB plane at 944,080 positions: the L2's request
+// rate set its time (the same kernel reading every round from one cached
+// row took a fifth of it).  Here a block's positions stay in registers (up
+// to SHUFFLE_MAX_PER a thread) and each round's window, the half of its row
+// that the round can read (csrc/epoch.cuh shuffle_window: 59 KB at 944,080
+// positions), is copied into shared memory by bulk copies (cp.async.bulk,
+// completing on an mbarrier), so every lookup reads on-chip memory.  Two
+// row buffers a block where they fit (to about 1.8M positions), so the next
+// round's copy runs under this round's lookups; one above that; past one
+// block's 225 KB (about 3.6M positions) the window is split over a cluster
+// of two blocks and a lookup may read the other block's half over the
+// SM-to-SM network (mapa, ld.shared::cluster).  Splitting at every size, as
+// clusters of 2, 4 and 8, measured slower than the parent: a scattered
+// one-byte remote read costs several cycles of its SM.  A block barrier a
+// round frees the buffer the next copy overwrites (a cluster barrier, and
+// one more after the copy lands, when split).  Bound: the copies, a
+// window a block a round from L2, under the lookups' shared-memory reads.
 //
 // Each launcher returns cudaGetLastError() of its launch.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "epoch.cuh"
 
@@ -60,15 +77,194 @@ k_fused_epoch_pass(long long n, int k, const int64_t* __restrict__ reward,
                               exit_epoch, withdrawable, scores_out, balances_out, eff_out);
 }
 
-__global__ void __launch_bounds__(kThreads)
-k_shuffle_rounds(long long count, int rounds, long long row_bytes,
+constexpr int kMaxStages = 2;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+                 "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done = 0;
+    while (!done)
+        asm volatile("{\n\t.reg .pred p;\n\t"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                     "selp.u32 %0, 1, 0, p;\n\t}"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// Thread 0: this block's pieces of row r's window into the stage buffer at
+// buf, completing on the stage's barrier (a plain arrival if it holds none)
+__device__ __forceinline__ void copy_window(uint32_t buf, uint32_t bar, const uint8_t* row,
+                                            const ShufflePieces& pc) {
+    const uint32_t bytes = pc.bytes[0] + pc.bytes[1];
+    if (!bytes) {
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+        return;
+    }
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(bytes) : "memory");
+    for (int q = 0; q < 2; q++)
+        if (pc.bytes[q])
+            asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                         "[%0], [%1], %2, [%3];"
+                         :: "r"(buf + pc.dst[q]), "l"(row + pc.src[q]), "r"(pc.bytes[q]),
+                            "r"(bar)
+                         : "memory");
+}
+
+// byte `local` (a shared address of this block's layout) of block `rank`
+__device__ __forceinline__ uint32_t ld_cluster_u8(uint32_t local, uint32_t rank) {
+    uint32_t remote, v;
+    asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+    asm volatile("ld.shared::cluster.u8 %0, [%1];" : "=r"(v) : "r"(remote) : "memory");
+    return v;
+}
+
+// A block of k_shuffle_rounds at PER positions a thread (csrc/epoch.cuh
+// shuffle_plan), on the kernel's shared memory: `stages` row buffers of
+// `slice` bytes, their barriers and the pivots.  CLUSTERED: the window is
+// split over a cluster and a lookup may read another block's slice.  Every
+// block of the cluster reaches every barrier.
+template <int PER, bool CLUSTERED>
+__device__ __forceinline__ void shuffle_block(long long count, int rounds, long long row_bytes,
+                                              long long per_block, int stages, uint32_t slice,
+                                              uint32_t magic, const int32_t* __restrict__ pivots,
+                                              const uint8_t* __restrict__ src,
+                                              int32_t* __restrict__ out, uint8_t* rows,
+                                              uint64_t* full, int32_t* piv) {
+    const int t = threadIdx.x, T = blockDim.x;
+    uint32_t rank = 0;
+    if (CLUSTERED) asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+    const uint32_t rows0 = smem_addr(rows), bar0 = smem_addr(full);
+    const int32_t n = (int32_t)count;
+    for (int r = t; r < rounds; r += T) piv[r] = pivots[r];
+    if (t == 0) {
+        for (int s = 0; s < stages; s++)
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar0 + 8 * s) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    const long long first = (long long)blockIdx.x * per_block + t;
+    const int active = shuffle_active(count, blockIdx.x, per_block, t, T, PER);
+    int32_t cur[PER];
+#pragma unroll
+    for (int j = 0; j < PER; j++) cur[j] = (int32_t)(first + (long long)j * T);
+    auto sync_all = [] {
+        if (CLUSTERED) cluster_sync();
+        else __syncthreads();
+    };
+    auto issue = [&](int r) {
+        const int s = r % stages;
+        copy_window(rows0 + s * slice, bar0 + 8 * s, src + r * row_bytes,
+                    shuffle_pieces(shuffle_window(piv[r], n), slice, rank));
+    };
+    sync_all();     // barriers ready, pivots staged, every block of the cluster running
+    if (t == 0)
+        for (int r = 0; r < stages - 1 && r < rounds; r++) issue(r);
+#pragma unroll 1
+    for (int r = 0; r < rounds; r++) {
+        const int s = r % stages;
+        if (r > 0) sync_all();      // every block done with round r - 1: its buffer is free
+        if (t == 0 && r + stages - 1 < rounds) issue(r + stages - 1);
+        bar_wait(bar0 + 8 * s, (uint32_t)(r / stages) & 1);
+        if (CLUSTERED) cluster_sync();      // every slice of row r's window is in
+        const ShuffleWindow w = shuffle_window(piv[r], n);
+        if (CLUSTERED) {
+            const uint32_t base = rows0 + s * slice;
+            thread_shuffle_round<PER>(cur, active, piv[r], n, w, slice, magic,
+                                      [base](uint32_t k, uint32_t off) {
+                                          return ld_cluster_u8(base + off, k);
+                                      });
+        } else {
+            const uint8_t* base = rows + s * slice;
+            thread_shuffle_round<PER>(cur, active, piv[r], n, w, slice, magic,
+                                      [base](uint32_t, uint32_t off) {
+                                          return (uint32_t)base[off];
+                                      });
+        }
+    }
+    if (CLUSTERED) cluster_sync();  // no block leaves while another reads its slices
+#pragma unroll
+    for (int j = 0; j < PER; j++)
+        if (j < active) out[first + (long long)j * T] = cur[j];
+}
+
+__global__ void __launch_bounds__(SHUFFLE_THREADS)
+k_shuffle_rounds(long long count, int rounds, long long row_bytes, long long per_block,
+                 int per, int cluster, int stages, uint32_t slice, uint32_t magic,
                  const int32_t* __restrict__ pivots, const uint8_t* __restrict__ src,
                  int32_t* __restrict__ out) {
+    extern __shared__ __align__(128) uint8_t rows[];
+    __shared__ __align__(8) uint64_t full[kMaxStages];
     __shared__ int32_t piv[kMaxRounds];
-    for (int r = threadIdx.x; r < rounds; r += blockDim.x) piv[r] = pivots[r];
-    __syncthreads();
-    const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (i < count) lane_shuffle(i, rounds, (int32_t)count, row_bytes, piv, src, out);
+#define SHUFFLE_CASE(P)                                                                     \
+    case P:                                                                                 \
+        if (cluster > 1)                                                                    \
+            shuffle_block<P, true>(count, rounds, row_bytes, per_block, stages, slice, magic, \
+                                   pivots, src, out, rows, full, piv);                      \
+        else                                                                                \
+            shuffle_block<P, false>(count, rounds, row_bytes, per_block, stages, slice,     \
+                                    magic, pivots, src, out, rows, full, piv);              \
+        break;
+    switch (per) {
+        SHUFFLE_CASE(1)
+        SHUFFLE_CASE(2)
+        SHUFFLE_CASE(4)
+        SHUFFLE_CASE(8)
+        SHUFFLE_CASE(16)
+        SHUFFLE_CASE(32)
+    }
+#undef SHUFFLE_CASE
+}
+
+// k_shuffle_rounds over `count` positions by shuffle_plan
+cudaError_t launch_shuffle(long long count, int rounds, long long row_bytes, const void* pivots,
+                           const void* src, void* out, cudaStream_t stream) {
+    if (rounds < 0 || rounds > kMaxRounds || count < 0 || row_bytes * 8 < count ||
+        count > SHUFFLE_CAPACITY || (row_bytes & 15) || (reinterpret_cast<uintptr_t>(src) & 15))
+        return cudaErrorInvalidValue;
+    if (count == 0) return cudaGetLastError();
+    static bool attr[64];
+    int dev = 0;
+    cudaError_t err;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if (dev >= 64 || !attr[dev]) {
+        if ((err = cudaFuncSetAttribute(k_shuffle_rounds,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)SHUFFLE_SMEM)) != cudaSuccess)
+            return err;
+        if (dev < 64) attr[dev] = true;
+    }
+    ShufflePlan plan = shuffle_plan(count, 1, SHUFFLE_THREADS);
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = plan.cluster;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    cfg.blockDim = dim3(SHUFFLE_THREADS);
+    cfg.gridDim = dim3(plan.cluster);
+    cfg.dynamicSmemBytes = (size_t)plan.stages * plan.slice;
+    cfg.stream = stream;
+    int clusters = 0;
+    if ((err = cudaOccupancyMaxActiveClusters(&clusters, k_shuffle_rounds, &cfg)) != cudaSuccess)
+        return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    plan = shuffle_plan(count, clusters, SHUFFLE_THREADS);
+    cfg.gridDim = dim3((unsigned)plan.blocks);
+    if ((err = cudaLaunchKernelEx(&cfg, k_shuffle_rounds, count, rounds, row_bytes,
+                                  plan.per_block, plan.per, plan.cluster, plan.stages,
+                                  plan.slice, plan.magic, static_cast<const int32_t*>(pivots),
+                                  static_cast<const uint8_t*>(src),
+                                  static_cast<int32_t*>(out))) != cudaSuccess)
+        return err;
+    return cudaGetLastError();
 }
 
 inline unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -104,16 +300,12 @@ int lh_fused_epoch_pass(long long n, int k, const void* reward, const void* pena
     return (int)cudaGetLastError();
 }
 
-// All `rounds` swap-or-not rounds for positions [0, count): out int32[count].
+// All `rounds` swap-or-not rounds for positions [0, count): out int32[count];
+// count at most SHUFFLE_CAPACITY, src and row_bytes 16-byte aligned.
 int lh_shuffle_rounds(long long count, int rounds, long long row_bytes, const void* pivots,
                       const void* src, void* out, void* stream) {
-    if (rounds < 0 || rounds > kMaxRounds || count >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-    if (count > 0) {
-        k_shuffle_rounds<<<blocks(count), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            count, rounds, row_bytes, static_cast<const int32_t*>(pivots),
-            static_cast<const uint8_t*>(src), static_cast<int32_t*>(out));
-    }
-    return (int)cudaGetLastError();
+    return (int)launch_shuffle(count, rounds, row_bytes, pivots, src, out,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -21,6 +21,7 @@
 #include "modinv.cuh"
 
 #ifndef __CUDACC__
+#include <cstring>
 #include <vector>
 #define __host__
 #define __device__
@@ -273,18 +274,95 @@ __device__ __forceinline__ void st(u32* p, long i, const Fr& a) {
 }
 
 // ---- row 16: raw big-endian bytes -> Montgomery words -----------------------
+// An element is two 16-byte chunks in (32 big-endian bytes) and two out (8
+// words), each byte read once and each word written once, streamed past
+// the caches; both pointers 16-byte aligned (the wrapper checks).  A load's
+// words are little-endian, so word k of the value is the byte swap of
+// loaded word 7 - k.  A thread of k_fr_to_mont takes FR_TO_MONT_PER
+// elements a block's width apart and issues all their loads before its
+// first product.
 
-__device__ __forceinline__ void lane_fr_to_mont(long i, const uint8_t* raw, u32* out) {
-    const uint8_t* b = raw + i * 32;
-    Fr x, r2;
-    for (int k = 0; k < 8; k++) {
-        x.w[k] = (u32)b[31 - 4 * k] | ((u32)b[30 - 4 * k] << 8) | ((u32)b[29 - 4 * k] << 16) |
-                 ((u32)b[28 - 4 * k] << 24);
-        r2.w[k] = R2_W[k];
-    }
-    fr_mul(x, x, r2);
-    st(out, i, x);
+#define FR_TO_MONT_PER 2
+
+struct W4 { u32 x, y, z, w; };
+
+__device__ __forceinline__ W4 ld16_stream(const uint8_t* p) {
+#ifdef __CUDACC__
+    const uint4 v = __ldcs(reinterpret_cast<const uint4*>(p));
+    return {v.x, v.y, v.z, v.w};
+#else
+    W4 v;
+    std::memcpy(&v, p, 16);
+    return v;
+#endif
 }
+
+__device__ __forceinline__ void st16_stream(u32* p, const W4& v) {
+#ifdef __CUDACC__
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(v.x, v.y, v.z, v.w));
+#else
+    std::memcpy(p, &v, 16);
+#endif
+}
+
+__device__ __forceinline__ u32 bswap32(u32 v) {
+#ifdef __CUDACC__
+    return __byte_perm(v, 0, 0x0123);
+#else
+    return __builtin_bswap32(v);
+#endif
+}
+
+// element i, loaded as (lo, hi) -> x·R mod r into out's words [i*8, i*8 + 8)
+__device__ __forceinline__ void fr_to_mont_store(const W4& lo, const W4& hi, const Fr& r2,
+                                                 u32* out, long i) {
+    Fr x;
+    x.w[0] = bswap32(hi.w);
+    x.w[1] = bswap32(hi.z);
+    x.w[2] = bswap32(hi.y);
+    x.w[3] = bswap32(hi.x);
+    x.w[4] = bswap32(lo.w);
+    x.w[5] = bswap32(lo.z);
+    x.w[6] = bswap32(lo.y);
+    x.w[7] = bswap32(lo.x);
+    fr_mul(x, x, r2);
+    st16_stream(out + i * 8, {x.w[0], x.w[1], x.w[2], x.w[3]});
+    st16_stream(out + i * 8 + 4, {x.w[4], x.w[5], x.w[6], x.w[7]});
+}
+
+// Thread t of block b, `threads` a block: elements
+// (b * FR_TO_MONT_PER + j) * threads + t, j < FR_TO_MONT_PER, those below n;
+// every load, then the products.
+__device__ __forceinline__ void thread_fr_to_mont(long b, long t, long threads, long n,
+                                                  const uint8_t* raw, u32* out) {
+    W4 lo[FR_TO_MONT_PER], hi[FR_TO_MONT_PER];
+#pragma unroll
+    for (int j = 0; j < FR_TO_MONT_PER; j++) {
+        const long i = (b * FR_TO_MONT_PER + j) * threads + t;
+        if (i < n) {
+            lo[j] = ld16_stream(raw + i * 32);
+            hi[j] = ld16_stream(raw + i * 32 + 16);
+        }
+    }
+    Fr r2;
+#pragma unroll
+    for (int k = 0; k < 8; k++) r2.w[k] = R2_W[k];
+#pragma unroll
+    for (int j = 0; j < FR_TO_MONT_PER; j++) {
+        const long i = (b * FR_TO_MONT_PER + j) * threads + t;
+        if (i < n) fr_to_mont_store(lo[j], hi[j], r2, out, i);
+    }
+}
+
+#ifndef __CUDACC__
+// k_fr_to_mont on the host: every thread of its grid (blocks of `threads`
+// over the n elements), one after another
+inline void host_fr_to_mont(const uint8_t* raw, u32* out, long n, long threads) {
+    const long blocks = (n + threads * FR_TO_MONT_PER - 1) / (threads * FR_TO_MONT_PER);
+    for (long b = 0; b < blocks; b++)
+        for (long t = 0; t < threads; t++) thread_fr_to_mont(b, t, threads, n, raw, out);
+}
+#endif
 
 // ---- row 15: the barycentric evaluation of one blob, by phases --------------
 // A blob's domain is split into T chunks of CHUNK points, thread t owning

@@ -6,9 +6,21 @@
 //   k_fr_to_mont -> ops/fr.py:332 _TO_MONT_JIT (wrapper fr.fr_to_mont_device)
 //   k_fr_eval    -> ops/fr.py:297 _eval_kernel (wrapper fr.eval_device)
 //
-// k_fr_to_mont: one element per thread, 32 bytes in and 32 out around one
-// Montgomery product; bound by the bytes it moves.  k_fr_eval: one block of
-// T threads per blob (T = W / 16 up to 256), each thread a chunk of the
+// k_fr_to_mont: 32 bytes in and 32 out around one Montgomery product an
+// element, bound by the bytes it moves (64 an element; its products take
+// under half of that time at the card's multiply-add rate).  An element
+// moves as two 16-byte streaming loads and two 16-byte streaming stores
+// (each byte is read once and written once) where the parent made 32
+// one-byte loads and 8 word stores, its byte order reversed in registers;
+// a thread takes FR_TO_MONT_PER = 2 elements a block's width apart and
+// issues both elements' loads before its first product, on a grid over
+// all elements (csrc/fr.cuh thread_fr_to_mont).  Measured against it on
+// the card: 4 elements a thread, a grid sized to the card walking the
+// elements, the next step's loads before this step's products, and warp-
+// contiguous 512-byte accesses through a shared-memory stage were all as
+// fast or slower, and the same kernel without its product no faster.
+//
+// k_fr_eval: one block of T threads per blob (T = W / 16 up to 256), each thread a chunk of the
 // domain: running products of the denominators d = z - w_i (Montgomery's
 // trick), a product tree over the T chunk products in shared memory with ONE
 // divstep inversion at its root (csrc/modinv.cuh), the down-sweep, then each
@@ -36,15 +48,15 @@ using namespace fr;
 
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kToMontThreads = 256;
 constexpr int kEvalMaxThreads = 256;
 constexpr int kEvalMaxChunk = 16;
 // blocks of k_fr_eval the register budget is set for on one SM
 constexpr int kEvalBlocksPerSM = 2;
 
-__global__ void k_fr_to_mont(long n, const uint8_t* raw, u32* out) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) lane_fr_to_mont(i, raw, out);
+__global__ void __launch_bounds__(kToMontThreads)
+    k_fr_to_mont(long n, const uint8_t* __restrict__ raw, u32* __restrict__ out) {
+    thread_fr_to_mont(blockIdx.x, threadIdx.x, kToMontThreads, n, raw, out);
 }
 
 __global__ void __launch_bounds__(kEvalMaxThreads, kEvalBlocksPerSM)
@@ -85,9 +97,15 @@ size_t eval_prepare(long long width, long long threads, cudaError_t* err) {
 
 extern "C" {
 
-// raw: n elements of 32 big-endian bytes; out: Montgomery words [n, 8]
+// raw: n elements of 32 big-endian bytes; out: Montgomery words [n, 8];
+// both 16-byte aligned
 int lh_fr_to_mont(const uint8_t* raw, u32* out, long long n, void* stream) {
-    k_fr_to_mont<<<(unsigned)((n + kBlock - 1) / kBlock), kBlock, 0, S(stream)>>>(n, raw, out);
+    if ((reinterpret_cast<uintptr_t>(raw) | reinterpret_cast<uintptr_t>(out)) & 15)
+        return (int)cudaErrorMisalignedAddress;
+    const long long span = (long long)FR_TO_MONT_PER * kToMontThreads;
+    if (n > 0)
+        k_fr_to_mont<<<(unsigned)((n + span - 1) / span), kToMontThreads, 0, S(stream)>>>(
+            n, raw, out);
     return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,9 @@ on the host with Python integers), the score-scaled inactivity penalty,
 proportional slashings and effective-balance hysteresis.  The kernel never
 divides by a runtime total, so it is bit-identical to the spec's integer
 arithmetic.  ``shuffle_rounds`` runs every swap-or-not round for every
-position of a committee shuffle.
+position of a committee shuffle, round by round, each round's window of
+decision bytes (the half of its row that the round can read) staged in
+shared memory.
 
 Column, table and parameter layouts are the JAX package's, with one more
 parameter, ``P_REWARDS``, that gates the inactivity and reward stages off
@@ -61,6 +63,10 @@ EPOCH_OPS_PER_LANE = 120
 # int32 operations per shuffle round and position: the flip, its
 # conditional add, the max, the byte address and bit extraction, the select.
 SHUFFLE_OPS_PER_ROUND = 10
+# the most positions ``shuffle_rounds`` takes (csrc/epoch.cuh
+# SHUFFLE_CAPACITY): a round's decision bytes must fit the slices of one
+# cluster's shared memory
+SHUFFLE_CAPACITY = 1 << 22
 
 
 # --------------------------------------------------------------------------
@@ -215,7 +221,11 @@ def shuffle_rounds(pivots: torch.Tensor, src: torch.Tensor, count: int) -> torch
     row_bytes >= ceil(count / 8) (position p's decision bit of round r at
     byte p >> 3, bit p & 7).  Returns int32[count]: out[i] is
     ``compute_shuffled_index(i, count, seed, rounds)``.  Replaces
-    ``lighthouse_tpu/ops/epoch_kernels.py:224`` (jitted at :250)."""
+    ``lighthouse_tpu/ops/epoch_kernels.py:224`` (jitted at :250).
+
+    At most ``SHUFFLE_CAPACITY`` positions, on either device.  The kernel
+    copies rows with 16-byte bulk copies, so on the card ``src`` and
+    ``row_bytes`` must be 16-byte aligned."""
     dev = src.device
     if src.dim() != 2:
         raise ValueError(f"shuffle_rounds: src must be [rounds, row_bytes], got {list(src.shape)}")
@@ -225,8 +235,15 @@ def shuffle_rounds(pivots: torch.Tensor, src: torch.Tensor, count: int) -> torch
     if not 0 <= count < 2**31 or row_bytes * 8 < count or rounds > 256:
         raise ValueError(f"shuffle_rounds: count {count} with {rounds} rounds of "
                          f"{row_bytes} source bytes")
+    if count > SHUFFLE_CAPACITY:
+        raise ValueError(f"shuffle_rounds: {count} positions exceed the kernel's capacity of "
+                         f"{SHUFFLE_CAPACITY}")
     if dev.type == "cpu":
         return shuffle_rounds_plain(pivots, src, count)
+    if row_bytes % 16 or src.data_ptr() % 16:
+        raise ValueError(f"shuffle_rounds: src rows of {row_bytes} bytes at an address "
+                         f"{src.data_ptr() % 16} bytes past a boundary: the kernel's bulk "
+                         f"copies need both 16-byte aligned")
     out = torch.empty(count, dtype=torch.int32, device=dev)
     if count:
         with torch.cuda.device(dev):

@@ -12,9 +12,12 @@ canonical integers are compared between the two packages:
 Kernels (launch counts on each wrapper's ``launches``):
 
 - ``fr_to_mont_device`` (``k_fr_to_mont``) replaces ``lighthouse_tpu/ops/
-  fr.py:332`` ``_TO_MONT_JIT``: one element per thread, its 32 big-endian
-  bytes to words, then one Montgomery product by R² mod r.  Bound: bytes
-  (32 in, 32 out against one 136-multiply-add product).
+  fr.py:332`` ``_TO_MONT_JIT``: an element's 32 big-endian bytes as two
+  16-byte streaming loads, the byte order reversed in registers, one
+  Montgomery product by R² mod r, two 16-byte streaming stores; a thread
+  takes 2 elements and issues their loads first, on a grid over all the
+  elements.  Bound: bytes (32 in, 32 out against one
+  136-multiply-add product).  Input and output must be 16-byte aligned.
 - ``eval_device`` (``k_fr_eval``) replaces ``lighthouse_tpu/ops/fr.py:297``
   ``_eval_kernel``: one block per blob.  Each thread takes a chunk of the
   domain, forms d = z - w_i and their running products (Montgomery's trick),
@@ -140,8 +143,12 @@ def fr_to_mont_plain(raw: torch.Tensor) -> torch.Tensor:
 def fr_to_mont_device(raw: torch.Tensor) -> torch.Tensor:
     """Raw field elements as big-endian bytes (uint8 [..., 32]) -> Montgomery
     words int32 [..., 8].  Replaces ``lighthouse_tpu/ops/fr.py:332``
-    ``_TO_MONT_JIT``."""
+    ``_TO_MONT_JIT``.  ``raw`` must be 16-byte aligned (the kernel's vector
+    loads): a view that starts elsewhere raises, on either device."""
     bls_cuda.check(raw, (32,), "fr_to_mont raw", dtype=torch.uint8)
+    if raw.data_ptr() % 16:
+        raise ValueError(f"fr_to_mont raw: must be 16-byte aligned for the kernel's vector "
+                         f"loads, got an address {raw.data_ptr() % 16} bytes past a boundary")
     if raw.device.type == "cpu":
         return fr_to_mont_plain(raw)
     out = torch.empty(raw.shape[:-1] + (L,), dtype=torch.int32, device=raw.device)

@@ -51,10 +51,26 @@ void h_epoch(long n, int k, const int64_t* reward, const int64_t* penalty, const
                                      scores, prev_part, slashed, activation, exit_epoch,
                                      withdrawable, sc, bal, eff);
 }
-void h_shuffle(long count, int rounds, long row_bytes, const int32_t* pivots,
-               const uint8_t* src, int32_t* out) {
-    for (long i = 0; i < count; i++)
-        epoch::lane_shuffle(i, rounds, (int32_t)count, row_bytes, pivots, src, out);
+int h_shuffle(long count, int rounds, long row_bytes, const int32_t* pivots,
+              const uint8_t* src, int32_t* out) {
+    return epoch::host_shuffle_rounds(count, rounds, row_bytes, pivots, src, out, 16,
+                                      epoch::SHUFFLE_THREADS, 0);
+}
+// k_shuffle_rounds's schedule: its plan on a card holding max_clusters
+// clusters of blocks of `threads` (cluster 0: the kernel's own choice),
+// each lookup through the round's window in slices; -1 if a window outgrew
+// its bound or a lookup read a byte no copy wrote
+int h_shuffle_kernel(long count, int rounds, long row_bytes, const int32_t* pivots,
+                     const uint8_t* src, int32_t* out, long max_clusters, int threads,
+                     int cluster) {
+    return epoch::host_shuffle_rounds(count, rounds, row_bytes, pivots, src, out, max_clusters,
+                                      threads, cluster);
+}
+long long h_shuffle_capacity() { return epoch::SHUFFLE_CAPACITY; }
+// the plan's cluster size and row buffers for `count` positions
+int h_shuffle_layout(long count) {
+    const epoch::ShufflePlan p = epoch::shuffle_plan(count, 16, epoch::SHUFFLE_THREADS);
+    return p.cluster * 10 + p.stages;
 }
 void h_sha256_block(long n, const uint32_t* state, const uint32_t* block, uint32_t* out) {
     for (long i = 0; i < n; i++) sha::lane_sha256_block(i, state, block, out);
@@ -100,7 +116,9 @@ def lanes(tmp_path_factory):
     subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas",
                     f"-I{native.CSRC}", str(d / "harness.cc"), "-o", str(so)],
                    check=True, capture_output=True, text=True)
-    return ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(so))
+    lib.h_shuffle_capacity.restype = ctypes.c_longlong
+    return lib
 
 
 def _ptr(a: np.ndarray):
@@ -256,9 +274,79 @@ def test_shuffle_lane_matches_plain(lanes, count, rounds):
     want = ek.shuffle_rounds(torch.from_numpy(piv32), torch.from_numpy(src), count).numpy()
     got = np.zeros(count, np.int32)
     src = np.ascontiguousarray(src)
-    lanes.h_shuffle(ctypes.c_long(count), ctypes.c_int(rounds), ctypes.c_long(src.shape[1]),
-                    _ptr(piv32), _ptr(src), _ptr(got))
+    assert lanes.h_shuffle(ctypes.c_long(count), ctypes.c_int(rounds),
+                           ctypes.c_long(src.shape[1]), _ptr(piv32), _ptr(src), _ptr(got)) == 0
     np.testing.assert_array_equal(got, want)
+
+
+# cluster sizes of k_shuffle_rounds the host schedule is run at: 1 (a
+# block holds the whole window, the kernel's choice at these counts) and 2
+# (the window split, as past about 3.6M positions)
+CLUSTERS = (1, 2)
+
+
+def _host_schedule(lanes, count, rounds, piv32, src, cluster):
+    """The host schedule at the kernel's 512 threads on a card of 16
+    clusters, and at 32 threads on cards of 1 and 3 clusters (several grid
+    waves, other positions a thread)."""
+    for max_clusters, threads in ((16, 512), (1, 32), (3, 32)):
+        got = np.full(count, -1, np.int32)
+        rc = lanes.h_shuffle_kernel(ctypes.c_long(count), ctypes.c_int(rounds),
+                                    ctypes.c_long(src.shape[1]), _ptr(piv32), _ptr(src),
+                                    _ptr(got), ctypes.c_long(max_clusters),
+                                    ctypes.c_int(threads), ctypes.c_int(cluster))
+        assert rc == 0, "a window outgrew its bound or a lookup read a byte no copy wrote"
+        yield got
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("count", [256, 257, 1000, 4099, (1 << 16) + 3])
+def test_shuffle_kernel_schedule_matches_plain_jax_and_the_scalar_shuffle(jax_ek, lanes, count,
+                                                                          cluster):
+    """Row 18's round-major schedule on the host: each round's window (the
+    half of the row the round reads) in `cluster` slices, each lookup
+    resolved to (slice, offset) as the kernel resolves it, every block and
+    thread of the kernel's plan, for rows that are not a multiple of the
+    cluster nor of 16 bytes; then the pivots at the window's edges (0, 1,
+    count / 2, count - 2, count - 1) on random decision bytes."""
+    rounds = 90
+    pivots, src = _sweep(count, rounds)
+    piv32, src = pivots.astype(np.int32), np.ascontiguousarray(src)
+    want = ek.shuffle_rounds_plain(torch.from_numpy(piv32), torch.from_numpy(src), count).numpy()
+    np.testing.assert_array_equal(
+        want, ek.shuffle_rounds(torch.from_numpy(piv32), torch.from_numpy(src), count).numpy())
+    bucket = max(256, 1 << (count - 1).bit_length())
+    np.testing.assert_array_equal(want, jax_ek.shuffle_rounds_device(count, pivots, src, bucket))
+    for got in _host_schedule(lanes, count, rounds, piv32, src, cluster):
+        np.testing.assert_array_equal(got, want)
+    for i in np.random.default_rng(count).integers(0, count, 6).tolist() + [0, count - 1]:
+        assert want[i] == tshuffle.compute_shuffled_index(i, count, SEED, rounds)
+        assert want[i] == jshuffle.compute_shuffled_index(i, count, SEED, rounds)
+    edge = np.array([0, 1, count // 2, count - 2, count - 1], np.int32)
+    rnd = np.random.default_rng(count + 1).integers(0, 256, (edge.size, src.shape[1]),
+                                                    dtype=np.uint8)
+    want = ek.shuffle_rounds_plain(torch.from_numpy(edge), torch.from_numpy(rnd), count).numpy()
+    for got in _host_schedule(lanes, count, edge.size, edge, rnd, cluster):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_shuffle_plan_holds_the_window_in_one_block_up_to_the_main_path(lanes):
+    """One block and two row buffers (the next round's copy under this
+    round's lookups) at the main path's counts; one buffer at 2^21; a
+    cluster of two at the capacity."""
+    assert [lanes.h_shuffle_layout(n) for n in (944_080, 1_022_315, 1 << 20, 1 << 21,
+                                                ek.SHUFFLE_CAPACITY)] == [12, 12, 12, 11, 21]
+
+
+def test_shuffle_rounds_raise_past_the_kernel_capacity(lanes):
+    cap = ek.SHUFFLE_CAPACITY
+    assert cap == lanes.h_shuffle_capacity() >= 1 << 22
+    src = torch.zeros((1, (cap + 1 + 7) // 8 + 16), dtype=torch.uint8)
+    piv = torch.zeros(1, dtype=torch.int32)
+    out = ek.shuffle_rounds(piv, src, cap)                     # at the capacity: runs
+    assert torch.equal(out, torch.arange(cap, dtype=torch.int32))
+    with pytest.raises(ValueError, match=f"capacity of {cap}"):
+        ek.shuffle_rounds(piv, src, cap + 1)
 
 
 # --------------------------------------------------------------------------
@@ -352,13 +440,19 @@ def test_kernels_match_plain_versions_on_the_card():
         args = _tensors(cols, tables, params, dev)
         for g, w in zip(ek.fused_epoch_pass(*args), ek.fused_epoch_pass_plain(*args)):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
-    for count, rounds in ((1000, 90), (4099, 10)):
+    # rows that are not a multiple of the cluster nor of 16 bytes, up to a
+    # row larger than one block's shared memory (2^21 positions)
+    shuffles = ((1000, 90), (4099, 10), (256, 90), (257, 90), ((1 << 16) + 3, 90),
+                (1 << 21, 90))
+    for count, rounds in shuffles:
         pivots, src = _sweep(count, rounds)
         p, s = torch.from_numpy(pivots.astype(np.int32)).to(dev), torch.from_numpy(src).to(dev)
         torch.testing.assert_close(ek.shuffle_rounds(p, s, count),
                                    ek.shuffle_rounds_plain(p, s, count), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ek.shuffle_rounds(p, s.view(-1)[1:1 + 90 * 32].view(90, 32), 256)
     state, block = (tsha.to_tensor(_words(4099, w, seed=w), dev) for w in (8, 16))
     got = tsha.sha256_block_device(state, block)
     torch.testing.assert_close(got, tsha.sha256_block_plain(state, block), rtol=0, atol=0)
-    assert [k.launches for k in ek.KERNELS] == [3, 2]
+    assert [k.launches for k in ek.KERNELS] == [3, len(shuffles)]
     assert tsha.sha256_block_device.launches == 1

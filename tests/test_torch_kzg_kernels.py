@@ -59,9 +59,12 @@ void h_fr(int op, const uint32_t* a, const uint32_t* b, uint32_t* r, long n) {
         fr::st(r, i, z);
     }
 }
-void h_to_mont(const uint8_t* raw, uint32_t* out, long n) {
-    for (long i = 0; i < n; i++) fr::lane_fr_to_mont(i, raw, out);
+void h_to_mont(const uint8_t* raw, uint32_t* out, long n) { fr::host_fr_to_mont(raw, out, n, 256); }
+// k_fr_to_mont's grid: every thread of its blocks of `threads`
+void h_to_mont_grid(const uint8_t* raw, uint32_t* out, long n, long threads) {
+    fr::host_fr_to_mont(raw, out, n, threads);
 }
+int h_to_mont_per() { return FR_TO_MONT_PER; }
 // k_fr_eval for every blob: fr.cuh's host version, its phases as loops over
 // the block's T threads at the kernel's chunk (width / T)
 void h_eval(const uint32_t* f, const uint32_t* zs, const uint32_t* roots, const uint32_t* inv_w,
@@ -170,6 +173,42 @@ def test_to_mont_lanes_equal_plain(lanes):
     assert n == 8
     assert np.array_equal(out, bi.to_numpy(fr.fr_to_mont_plain(torch.from_numpy(raw))))
     assert fr.FR.mont_limbs_to_ints(out) == [v % R for v in vals]
+
+
+EDGE_VALUES = [0, 1, R - 1, R, R + 1, (1 << 256) - 1]
+
+
+@pytest.mark.parametrize("threads", [1, 3, 8, 64])
+def test_to_mont_grid_equals_plain_and_the_jax_program(lanes, threads):
+    """Row 16's vector path: every thread of the kernel's grid
+    (FR_TO_MONT_PER elements a thread, a block's width apart, as two 16-byte
+    loads each, all loads before the first product) over a count that is
+    not a multiple of the elements a thread, with the edge values among
+    random ones: grids of 1 to 69 blocks."""
+    from lighthouse_tpu.ops import fr as jfr
+
+    per = lanes.h_to_mont_per()
+    vals = EDGE_VALUES + _fr_vals(131, 11)      # 137 elements
+    assert len(vals) % per
+    raw = np.frombuffer(b"".join(v.to_bytes(32, "big") for v in vals), np.uint8)
+    raw = raw.reshape(-1, 32).copy()
+    out = np.full((len(vals), 8), 0xDEADBEEF, np.uint32)
+    n = _counted(lanes.h_fr_count, lanes.h_to_mont_grid, _ptr(raw), _ptr(out),
+                 ctypes.c_long(len(vals)), ctypes.c_long(threads))
+    assert n == len(vals)                       # one product an element, each once
+    assert np.array_equal(out, bi.to_numpy(fr.fr_to_mont_plain(torch.from_numpy(raw))))
+    want = [v % R for v in vals]
+    assert fr.FR.mont_limbs_to_ints(out) == want
+    jax_m = jfr._TO_MONT_JIT(jfr.be32_bytes_to_limbs(raw))
+    assert [int(v) for v in jfr.from_mont_host(np.asarray(jax_m))] == want
+
+
+def test_to_mont_wrapper_raises_on_a_misaligned_view():
+    buf = torch.zeros(32 * 4 + 16, dtype=torch.uint8)
+    assert buf.data_ptr() % 16 == 0
+    fr.fr_to_mont_device(buf[16:16 + 32 * 4].view(4, 32))      # aligned: runs
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fr.fr_to_mont_device(buf[1:1 + 32 * 4].view(4, 32))
 
 
 @pytest.mark.parametrize("width", [16, 64, 2, 4, 8, 512])
@@ -408,8 +447,17 @@ def test_every_kzg_kernel_matches_plain_on_the_card():
     cases += [(t12.miller_reduce_device, t12.miller_reduce_plain, tuple(x[:1] for x in mr)),
               (t12.miller_reduce_device, t12.miller_reduce_plain,
                mr[:4] + (torch.zeros_like(mr[4]),))]
+    # raw to Montgomery over counts that are not a multiple of the kernel's
+    # elements a thread, the edge values among them
+    vals = EDGE_VALUES + _fr_vals(4099, 12)
+    raw = torch.from_numpy(np.frombuffer(b"".join(v.to_bytes(32, "big") for v in vals),
+                                         np.uint8).reshape(-1, 32).copy()).cuda()
+    cases += [(fr.fr_to_mont_device, fr.fr_to_mont_plain, (raw[:k],)) for k in (1, 7, len(vals))]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fr.fr_to_mont_device(raw.view(-1)[8:8 + 32 * 4].view(4, 32))
     for kernel, plain, args in cases:
         got, want = kernel(*args), plain(*(x.cpu() if isinstance(x, torch.Tensor) else x
                                            for x in args))
         for g_, w_ in zip(*(x if isinstance(x, tuple) else (x,) for x in (got, want))):
             assert torch.equal(g_.cpu(), w_), kernel.__name__
+    assert fr.FR.mont_limbs_to_ints(bi.to_numpy(fr.fr_to_mont_device(raw))) == [v % R for v in vals]
