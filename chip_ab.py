@@ -2,7 +2,7 @@
 """Time chosen rows of the kernel table (``PERF.md`` §6) in two checkouts
 of the port on one card, in turns.
 
-    python3 chip_ab.py OLD_TREE NEW_TREE [--rows 3,8,12,15,16,18,20]
+    python3 chip_ab.py OLD_TREE NEW_TREE [--rows 3,8,12,15,16,17,18,20]
 
 Each tree is the root of a checkout (``git archive`` of a commit unpacked
 anywhere); its ``lighthouse_tpu_torch`` is imported and built in a process
@@ -25,6 +25,16 @@ CUDA-event means at the main path's shapes (``chip_smoke.py``'s seeds):
   the JAX package's dry-run shape (64 leaves a shard);
 - row 16 at the 768-blob batch's 768 x 4096 elements (also its device time
   alone, behind a spin kernel);
+- row 17 on ``chip_smoke.py`` phase 8's columns (the 2^20-validator
+  stress-fill epoch state): 2^14 lanes, 2^20, 2^21 (the columns twice),
+  the second shard of a mesh naming the card 4 times (a view 2^18 lanes
+  in) and a view 5 lanes in (the scalar head and tail path), each also as
+  device time alone behind a spin kernel long enough to hide the host's
+  enqueueing, and as the host's time to enqueue one call; and a copy-only
+  probe (built here with nvcc, not part of either tree) that moves the
+  same 70 bytes a lane in the same vector pattern and grid, at 2, 4 and 8
+  lanes a thread streaming and at 2 through the caches (102): the floor
+  this access pattern reaches on the card;
 - row 18 at the new epoch's 944,080 positions of ``chip_smoke.py``'s
   2^20-validator state, at 2^20, 2^21 and its 2^22 capacity (90 rounds,
   random pivots and decision bytes; also its device time alone).
@@ -40,6 +50,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 BLS_SEED = 20240314          # chip_smoke.py's block batch
 KZG_SEED = 11                # chip_smoke.py's 768-blob batch
@@ -49,7 +60,13 @@ SHA_SEED = 20240313          # chip_smoke.py's SEED
 EPOCH_SEED = 20240315        # chip_smoke.py's epoch seed
 SHUFFLE_COUNTS = (944_080, 1 << 20, 1 << 21, 1 << 22)
 SHUFFLE_ROUNDS = 90
-ROWS = (3, 8, 12, 15, 16, 18, 20)
+EPOCH_SIZES = (1 << 14, 1 << 20, 1 << 21)
+EPOCH_MESH = 4
+# row 17's spin: about 20 ms at 1,980 MHz, past the enqueueing of 50 calls
+# (a wrapper call costs the host tens of microseconds, more than the
+# kernel at 2^20 lanes)
+EPOCH_SPIN = 40_000_000
+ROWS = (3, 8, 12, 15, 16, 17, 18, 20)
 
 
 def one(tree: str, rows: tuple) -> dict:
@@ -91,6 +108,8 @@ def one(tree: str, rows: tuple) -> dict:
         out.update(rows_3_20(torch, np, rows, dev, ms))
     if 16 in rows:
         out.update(row16(torch, np, fr, dev, ms))
+    if 17 in rows:
+        out.update(row17(torch, np, dev, ms))
     if 18 in rows:
         out.update(row18(torch, np, dev, ms))
     out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -171,6 +190,159 @@ def row16(torch, np, fr, dev, ms) -> dict:
             "row16_device_ms": device_ms(torch, lambda: fr.fr_to_mont_device(raw_t), 50)}
 
 
+PROBE_SRC = r"""
+// Copy-only probe of row 17's access pattern: L lanes a thread, every
+// column's L values in one vector streaming load (int64 in 16-byte pairs),
+// three int64 outputs in 16-byte streaming stores, a grid of the SMs times
+// the resident blocks walking the groups.  Each output mixes the inputs so
+// that no load is dropped.
+#include <cuda_runtime.h>
+#include <cstdint>
+
+template <bool C, class T>
+__device__ __forceinline__ T l1(const T* p) {
+    if constexpr (C) return __ldg(p);
+    else return __ldcs(p);
+}
+
+template <int B, bool C>
+__device__ __forceinline__ void ld(void* d, const void* s) {
+    if constexpr (B % 16 == 0) {
+#pragma unroll
+        for (int j = 0; j < B / 16; ++j)
+            static_cast<int4*>(d)[j] = l1<C>(static_cast<const int4*>(s) + j);
+    } else if constexpr (B == 8) {
+        *static_cast<int2*>(d) = l1<C>(static_cast<const int2*>(s));
+    } else if constexpr (B == 4) {
+        *static_cast<int*>(d) = l1<C>(static_cast<const int*>(s));
+    } else {
+        *static_cast<short*>(d) = l1<C>(static_cast<const short*>(s));
+    }
+}
+
+template <int B, bool C>
+__device__ __forceinline__ void st(void* d, const void* s) {
+#pragma unroll
+    for (int j = 0; j < B / 16; ++j) {
+        if constexpr (C) static_cast<int4*>(d)[j] = static_cast<const int4*>(s)[j];
+        else __stcs(static_cast<int4*>(d) + j, static_cast<const int4*>(s)[j]);
+    }
+}
+
+template <int L, bool C>
+__global__ void __launch_bounds__(256)
+k_copy(long long groups, const int32_t* a, const int64_t* b, const int64_t* c, const uint8_t* d,
+       const uint8_t* e, const int64_t* f, const int64_t* g, const int64_t* h, int64_t* o1,
+       int64_t* o2, int64_t* o3) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x; q < groups; q += stride) {
+        const long long i = q * L;
+        alignas(16) int32_t ia[L];
+        alignas(16) int64_t ib[L], ic[L], iff[L], ig[L], ih[L], x[L], y[L], z[L];
+        alignas(8) uint8_t id[L], ie[L];
+        ld<4 * L, C>(ia, a + i); ld<8 * L, C>(ib, b + i); ld<8 * L, C>(ic, c + i);
+        ld<8 * L, C>(iff, f + i); ld<8 * L, C>(ig, g + i); ld<8 * L, C>(ih, h + i);
+        ld<L, C>(id, d + i); ld<L, C>(ie, e + i);
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+            x[j] = ib[j] + ia[j];
+            y[j] = ic[j] ^ iff[j] ^ id[j];
+            z[j] = ig[j] + ih[j] + ie[j];
+        }
+        st<8 * L, C>(o1 + i, x); st<8 * L, C>(o2 + i, y); st<8 * L, C>(o3 + i, z);
+    }
+}
+
+template <int L, bool C>
+int launch(long long n, void** p, cudaStream_t s) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_copy<L, C>, 256, 0);
+    const long long groups = n / L;
+    long long blocks = (groups + 255) / 256;
+    if (blocks > (long long)sms * per_sm) blocks = (long long)sms * per_sm;
+    k_copy<L, C><<<(unsigned)blocks, 256, 0, s>>>(
+        groups, (const int32_t*)p[0], (const int64_t*)p[1], (const int64_t*)p[2],
+        (const uint8_t*)p[3], (const uint8_t*)p[4], (const int64_t*)p[5], (const int64_t*)p[6],
+        (const int64_t*)p[7], (int64_t*)p[8], (int64_t*)p[9], (int64_t*)p[10]);
+    return (int)cudaGetLastError();
+}
+
+// lanes 2, 4, 8 stream; 102 is 2 lanes through the caches
+extern "C" int probe(int lanes, long long n, void** p, void* s) {
+    auto st = static_cast<cudaStream_t>(s);
+    return lanes == 2 ? launch<2, false>(n, p, st) : lanes == 4 ? launch<4, false>(n, p, st)
+         : lanes == 8 ? launch<8, false>(n, p, st) : launch<2, true>(n, p, st);
+}
+"""
+
+
+def copy_probe(torch, ins: list, n: int, lanes: int):
+    """The copy-only probe over the first n lanes of ``ins`` (the pass's
+    eight input columns), built into a temporary directory at first use."""
+    import ctypes
+    import tempfile
+
+    global _PROBE
+    if "_PROBE" not in globals():
+        from lighthouse_tpu_torch import native
+
+        d = tempfile.mkdtemp(prefix="chip_ab_probe_")
+        src = os.path.join(d, "probe.cu")
+        with open(src, "w") as f:
+            f.write(PROBE_SRC)
+        subprocess.run([native._nvcc(), *native.NVCC_FLAGS, src, "-o", os.path.join(d, "p.so")],
+                       check=True, capture_output=True)
+        _PROBE = ctypes.CDLL(os.path.join(d, "p.so"))
+        _PROBE.probe.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                                 ctypes.c_void_p]
+    outs = [torch.empty(n, dtype=torch.int64, device=ins[0].device) for _ in range(3)]
+    ptrs = (ctypes.c_void_p * 11)(*[t.data_ptr() for t in ins + outs])
+
+    def run():
+        rc = _PROBE.probe(lanes, n, ptrs, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"copy probe: CUDA error {rc}")
+    return run
+
+
+def row17(torch, np, dev, ms) -> dict:
+    from lighthouse_tpu_torch import testing as T
+    from lighthouse_tpu_torch.ops import epoch_kernels as ek
+    from lighthouse_tpu_torch.state_transition import epoch_device, epoch_processing
+
+    state, spec = T.epoch_state(1 << 20, EPOCH_SEED, "mainnet")
+    leak = epoch_processing.is_in_inactivity_leak(state, spec)
+    columns = epoch_device.build_columns(state, spec)
+    tables = epoch_device.build_tables(state, spec, leak=leak)
+    params = epoch_device.build_params(state, spec, leak=leak)
+    del state
+    full = [torch.from_numpy(columns[c]).to(dev) for c in epoch_device.COLUMNS]
+    shared = [torch.from_numpy(a).to(dev) for a in (tables["reward"], tables["penalty"],
+                                                     tables["slash"], params)]
+    per = (1 << 20) // EPOCH_MESH
+    cases = {f"2^{n.bit_length() - 1}": [x[:n] if n <= x.shape[0] else torch.cat([x, x])
+                                          for x in full] for n in EPOCH_SIZES}
+    cases["mesh4 shard 1"] = [x[per:2 * per] for x in full]
+    cases["view +5"] = [x[5:(1 << 20) - 11] for x in full]
+    out = {"row17_ms": {}, "row17_device_ms": {}, "row17_host_ms": {}}
+    for label, cols in cases.items():
+        args = cols + shared
+        for g, w in zip(ek.fused_epoch_pass(*args), ek.fused_epoch_pass_plain(*args)):
+            if not torch.equal(g, w):
+                raise SystemExit(f"row 17 disagrees with its plain version at {label}")
+        out["row17_ms"][label] = ms(lambda: ek.fused_epoch_pass(*args), 50)
+        out["row17_device_ms"][label] = device_ms(torch, lambda: ek.fused_epoch_pass(*args), 50,
+                                                  EPOCH_SPIN)
+        out["row17_host_ms"][label] = host_ms(torch, lambda: ek.fused_epoch_pass(*args), 50)
+    out["row17_probe_device_ms"] = {
+        lanes: device_ms(torch, copy_probe(torch, cases["2^20"], 1 << 20, lanes), 50, EPOCH_SPIN)
+        for lanes in (2, 4, 8, 102)}
+    out["row17_bytes_2^20"] = (1 << 20) * ek.EPOCH_BYTES_PER_LANE
+    return out
+
+
 def row18(torch, np, dev, ms) -> dict:
     from lighthouse_tpu_torch.ops import epoch_kernels as ek
 
@@ -235,13 +407,29 @@ def rows_3_20(torch, np, rows, dev, ms) -> dict:
     return out
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """CUDA-event mean of ``reps`` calls queued behind a 2 ms spin kernel,
-    so that the host's enqueueing does not show between short launches."""
+def host_ms(torch, fn, reps: int) -> float:
+    """Host milliseconds to enqueue one of ``reps`` calls (behind a spin
+    kernel, so that the card's queue never pushes back)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(EPOCH_SPIN)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def device_ms(torch, fn, reps: int, spin: int = 4_000_000) -> float:
+    """CUDA-event mean of ``reps`` calls queued behind a spin kernel of
+    ``spin`` cycles (2 ms by default), so that the host's enqueueing does
+    not show between short launches: the spin must outlast the enqueueing
+    of all ``reps`` calls."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(4_000_000)
+    torch.cuda._sleep(spin)
     start.record()
     for _ in range(reps):
         fn()

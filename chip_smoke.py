@@ -59,13 +59,15 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
 8. The epoch kernels against their plain PyTorch versions on the card,
    tolerance 0 (integer arithmetic), on a 2^20-validator mainnet Deneb
    state at the last slot of an epoch (``testing.epoch_state``): the fused
-   epoch pass over its 2^20 lanes, the shuffle rounds over the new epoch's
+   epoch pass over its 2^20 lanes (also at 1, 3, 5 and 2^20 + 7 lanes, on
+   views 1 to 15 lanes into its columns, and, in phase 9, on the
+   mainnet-fill state's columns), the shuffle rounds over the new epoch's
    active set (and over 2^20 and 2^21 positions: a row of decision bytes
    larger than one block's shared memory), and the single-block SHA-256
    over the shuffle's source messages, also against hashlib; the shuffle
    also against ``compute_shuffled_index`` at sampled positions; first both
    epoch kernels' ptxas lines (a stack frame or spill in
-   ``k_shuffle_rounds`` fails the run).
+   ``k_shuffle_rounds`` or ``k_fused_epoch_pass`` fails the run).
 9. The epoch main path, once for each fill of ``testing.epoch_state``:
    the stress fill of phase 8, then a mainnet-shaped registry (what a
    node crosses every epoch).  With the tree cache attached,
@@ -164,7 +166,8 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     one; printed, not a failure); and
     ``BeaconChain.process_block`` of the three blocks
     (``block_import_p50_ms``, split into gossip, signatures, copy, advance,
-    transition, state root, import).  Launch counts are read over these
+    transition, state root, import and the head recompute within it).
+    Launch counts are read over these
     runs alone.  Afterwards: each imported block is its parent's child in
     fork choice, both routes import the same roots, the last post-state
     root equals a hashlib root of the same state, tampered blocks (two
@@ -172,7 +175,21 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     index) give the JAX package's reasons; then one traced import under
     each final exponentiation route (the device-busy share; a kernel the
     wrappers launched in it but the trace lacks fails the run, and so does
-    a device-route import without row 9) and one cProfiled import.
+    a device-route import without row 9) and one cProfiled import.  Then
+    a block with blobs (``testing.blob_block_cell``: the full block after
+    the cell's last, with 6 blobs of width 4096 on ``KzgSettings.dev(4096)``
+    and its 6 sidecars): tampered sidecars (another blob's proof, index 6,
+    index 1, a changed branch node, the next validator as proposer) must
+    give the JAX package's ``BlobError`` reasons, then the block is
+    imported in both arrival orders into two chains that hold the cell's
+    blocks (block first: ``process_block`` returns None, the missing
+    indices are 0-5 and the sixth ``process_gossip_blob`` imports it;
+    sidecars first, then the block), counted; afterwards each chain's head
+    is the block, its post-state root equals the block's and a hashlib
+    root, its 6 blobs are kept, and a repeated sidecar gives
+    ``repeat_blob``; ``blob_block_import_ms`` per order and the gossip
+    sidecar's p50 with its stages (gossip checks, proposer check, header
+    signature, KZG, commit).
 16. The multi-device rungs (``lighthouse_tpu_torch/parallel/``) over
     meshes that name this card 1, 2 and 4 times (a mesh's shards then run
     one after another on it): row 19, ``sharded_miller_reduce``, against
@@ -482,8 +499,10 @@ def main() -> int:
     kzg_batch = kzg_phases(torch, np, native, dev, table, build_s, max_mhz)
     shard_inputs["fold"] = ingest_phases(torch, np, dev, table, max_mhz)
     final_exp_phase(torch, np, native, dev, table, max_mhz, block_sets, kzg_batch)
+    kzg_settings = kzg_batch[3]
     del kzg_batch
-    block_phase(torch, np, dev, table)
+    block_phase(torch, np, dev, table, kzg_settings)
+    del kzg_settings
     sharded_phase(torch, np, dev, table, max_mhz, int32_ops_per_s, block_sets, shard_inputs)
     del block_sets, shard_inputs
     log(f"calls on the main paths (the table's launches count a tree kernel's levels): "
@@ -775,7 +794,8 @@ GROUP_KERNELS = ("k_gj_scalar_mul", "k_g1_scalar_mul", "k_g1_gather_scalar_mul",
                  "k_g1_subgroup")
 # Kernels whose values must all stay in registers or shared memory (rows 8
 # and 15's redesign): a stack frame or a spill in either fails the run.
-NO_STACK_KERNELS = ("k_blinded_final", "k_fr_eval", "k_fr_to_mont", "k_shuffle_rounds")
+NO_STACK_KERNELS = ("k_blinded_final", "k_fr_eval", "k_fr_to_mont", "k_shuffle_rounds",
+                    "k_fused_epoch_pass")
 BLS_KERNELS = GROUP_KERNELS + ("k_g1_add_halves", "k_g2_add_halves", "k_blinded_final",
                                "k_g1_affine", "k_fp_mul_chain")
 
@@ -793,18 +813,20 @@ def ptxas_report(native, name: str, kernels) -> None:
             rows.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
     spilled = []
     for k in kernels:
-        hits = [v for f, v in rows.items() if f"{len(k)}{k}E" in f]
+        # a template kernel reports each instantiation
+        hits = [v for f, v in rows.items() if re.search(rf"{len(k)}{k}[EI]", f)]
         if not hits:
             raise SystemExit(f"ptxas reported nothing for {k} in {name}.cu")
-        log(f"  {k}: {'; '.join(hits[0])}")
-        line = " ".join(hits[0])
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        spills = m is None or int(m.group(1)) or int(m.group(2))
-        if k in GROUP_KERNELS and spills:
-            spilled.append(k)
-        frame = re.search(r"(\d+) bytes stack frame", line)
-        if k in NO_STACK_KERNELS and (spills or frame is None or int(frame.group(1))):
-            spilled.append(k)
+        for hit in hits:
+            log(f"  {k}: {'; '.join(hit)}")
+            line = " ".join(hit)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            spills = m is None or int(m.group(1)) or int(m.group(2))
+            if k in GROUP_KERNELS and spills:
+                spilled.append(k)
+            frame = re.search(r"(\d+) bytes stack frame", line)
+            if k in NO_STACK_KERNELS and (spills or frame is None or int(frame.group(1))):
+                spilled.append(k)
     if spilled:
         raise SystemExit(f"kernels spill registers or keep a stack frame: {spilled}")
 
@@ -909,7 +931,9 @@ def device_busy(trace_path: str) -> tuple[float, int, dict]:
     for ev in events:
         if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in ev:
             spans.append((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
-            key = ev["name"].replace("(anonymous namespace)::", "").split("(")[0][:40]
+            # a template kernel's name carries its return type
+            key = ev["name"].replace("(anonymous namespace)::", "").removeprefix("void ")
+            key = key.split("(")[0][:40]
             device_us[key] = device_us.get(key, 0.0) + float(ev["dur"])
     busy_us, end_us = 0.0, float("-inf")
     for a, b in sorted(spans):
@@ -951,6 +975,21 @@ def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> dict
         fn()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def spun_ms(fn, reps: int) -> float:
+        """CUDA-event mean of ``reps`` calls queued behind a spin kernel of
+        about 20 ms: the kernel's own time, where a back-to-back mean of a
+        launch shorter than its wrapper's host work shows the host's."""
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)
         start.record()
         for _ in range(reps):
             fn()
@@ -1038,6 +1077,11 @@ def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> dict
         if err != 0 or [g.shape for g in got] != [w.shape for w in want]:
             raise SystemExit(f"{label}: kernel disagrees with its plain version (max err {err})")
         ms = cuda_ms(lambda: kernel(*kargs), reps)
+        if key == "epoch_pass":
+            # row 17 runs shorter than its wrapper's host work: the table
+            # takes its time behind a spin kernel
+            log(f"kernel {label}: back-to-back mean {ms:.4f} ms (the wrapper's host work)")
+            ms = spun_ms(lambda: kernel(*kargs), 50)
         bound_ms, bound_by = bound(ops, nbytes)
         log(f"kernel {label}: == plain (max err {err}); {ms:.4f} ms, plain {plain_ms:.2f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {ops} int32 operations, {nbytes} bytes)")
@@ -1045,6 +1089,7 @@ def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> dict
             table[key] = dict(name=key, route="cuda", source=source, replaces=replaces,
                               launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    epoch_pass_edges(torch, ek, args)
     hashed = np.stack([np.frombuffer(hashlib.sha256(m.tobytes()).digest(), np.uint8)
                        for m in msgs])
     if not np.array_equal(hashed, digest.astype(">u4").view(np.uint8).reshape(-1, 32)):
@@ -1075,8 +1120,40 @@ def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> dict
     state, spec = T.epoch_state(N_FULL, EPOCH_SEED, "mainnet", fill="mainnet")
     log(f"built the {N_FULL}-validator mainnet-fill epoch state in "
         f"{time.perf_counter() - t0:.2f} s")
+    leak = epoch_processing.is_in_inactivity_leak(state, spec)
+    columns = epoch_device.build_columns(state, spec)
+    main_args = [torch.from_numpy(columns[c]).to(dev) for c in epoch_device.COLUMNS]
+    main_args += [torch.from_numpy(a).to(dev) for a in (
+        *(epoch_device.build_tables(state, spec, leak=leak)[k] for k in ("reward", "penalty",
+                                                                          "slash")),
+        epoch_device.build_params(state, spec, leak=leak))]
+    for g, w in zip(ek.fused_epoch_pass(*main_args), ek.fused_epoch_pass_plain(*main_args)):
+        if not torch.equal(g, w):
+            raise SystemExit("epoch_pass: kernel disagrees with its plain version on the "
+                             "mainnet-fill columns")
+    log(f"epoch_pass == plain on the {N_FULL} mainnet-fill columns")
+    del main_args, columns
     boundary_path(torch, np, dev, state, spec, "mainnet")
     return shard_inputs
+
+
+def epoch_pass_edges(torch, ek, args) -> None:
+    """Row 17 against its plain version, tolerance 0, at counts that leave
+    a scalar head or tail beside the vector groups (1, 3, 5 and 2^20 + 7
+    lanes, the last the columns and 7 of their lanes again) and on views
+    that start 1 to 15 lanes into the columns (a mesh shard's view)."""
+    cols, shared = list(args[:8]), list(args[8:])
+    cases = [(f"{n} lanes", [x[:n] for x in cols]) for n in (1, 3, 5)]
+    cases.append((f"{N_FULL + 7} lanes", [torch.cat([x, x[:7]]) for x in cols]))
+    cases += [(f"a view {o} lanes in", [x[o:] for x in cols]) for o in range(1, 16)]
+    for label, case in cases:
+        for g, w in zip(ek.fused_epoch_pass(*case, *shared),
+                        ek.fused_epoch_pass_plain(*case, *shared)):
+            if not torch.equal(g, w):
+                raise SystemExit(f"epoch_pass: kernel disagrees with its plain version at "
+                                 f"{label}")
+    log(f"epoch_pass == plain at {len(cases)} edge cases: counts 1, 3, 5, {N_FULL + 7}; "
+        f"views 1-15 lanes in")
 
 
 def boundary_path(torch, np, dev, state, spec, fill: str) -> dict:
@@ -1980,8 +2057,9 @@ def final_exp_phase(torch, np, native, dev, table, max_mhz, block, kzg_batch) ->
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
 
-def block_phase(torch, np, dev, table) -> None:
-    """Phase 15: block verify end to end (BASELINE config 2)."""
+def block_phase(torch, np, dev, table, kzg_settings) -> None:
+    """Phase 15: block verify end to end (BASELINE config 2), then a block
+    with 6 blobs imported in both arrival orders."""
     from lighthouse_tpu_torch import testing as T
     from lighthouse_tpu_torch.chain.beacon_chain import BeaconChain
     from lighthouse_tpu_torch.chain.block_verification import BlockError
@@ -2021,7 +2099,7 @@ def block_phase(torch, np, dev, table) -> None:
         return (time.perf_counter() - t) * 1e3, state
 
     def new_chain():
-        return BeaconChain(spec, cell["state"], device=dev)
+        return BeaconChain(spec, cell["state"], device=dev, kzg_settings=kzg_settings)
 
     def import_all(c):
         roots = []
@@ -2105,6 +2183,8 @@ def block_phase(torch, np, dev, table) -> None:
     log(f"imports: each block a child of its parent in fork choice, both routes the same roots, "
         f"the last post-state root == hashlib {host_root.hex()}; tampered blocks rejected "
         f"{reasons}")
+    blob_block_import(torch, dev, cell, results["native"]["chain"], results["device"]["chain"],
+                      kzg_settings)
 
     final_exp_ms = {}
     for route, r in results.items():
@@ -2126,7 +2206,7 @@ def block_phase(torch, np, dev, table) -> None:
                   - ledger.get("sets", 0.0) - ledger.get("verify", 0.0)}
         imp = {k: statistics.median(t[k] for t in r["times"]) * 1e3
                for k in ("gossip", "signatures", "copy", "advance", "transition", "state_root",
-                         "import", "total")}
+                         "import", "head", "total")}
         met = "met" if r["p50"] <= BLOCK_VERIFY_LIMIT_MS else "not met"
         log(json.dumps({"route": route, "block_verify_p50_ms": r["p50"],
                         "block_verify_runs_ms": r["runs"], "block_verify_cold_ms": r["cold_ms"],
@@ -2196,6 +2276,141 @@ def block_phase(torch, np, dev, table) -> None:
     log(f"host profile of one block import, top 5 by own time (ms): "
         f"{host_top5(lambda: chain.process_block(blocks[0]))}")
     log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+
+BLOB_SEED = 20240319
+
+
+def blob_block_import(torch, dev, cell, first, second, settings) -> None:
+    """Phase 15, the block with blobs (queue A 10): ``testing.blob_block_cell``'s
+    full block after the cell's last, with 6 blobs of width 4096 and their
+    sidecars, into two chains that hold the cell's blocks: into ``first``
+    block first (it waits; the sixth sidecar imports it), into ``second``
+    sidecars first.  Before that, tampered sidecars on ``first`` must give
+    the JAX package's reasons and mark nothing.  Launch counts are read over
+    the two imports."""
+    from lighthouse_tpu_torch import testing as T
+    from lighthouse_tpu_torch.chain.blob_verification import BlobError
+    from lighthouse_tpu_torch.crypto import kzg
+    from lighthouse_tpu_torch.ops import bls12_381 as t12
+    from lighthouse_tpu_torch.ops import bls_backend as bb
+    from lighthouse_tpu_torch.ops import epoch_kernels as ek
+    from lighthouse_tpu_torch.ops import sha256 as sha
+
+    t0 = time.perf_counter()
+    blob = T.blob_block_cell(cell, settings, KZG_BLOCK_BLOBS, BLOB_SEED)
+    signed, sidecars = blob["block"], blob["sidecars"]
+    slot = int(signed.message.slot)
+    root = signed.message.hash_tree_root(dev)
+    log(f"blob block: slot {slot}, {len(sidecars)} blobs of {settings.width} field elements, "
+        f"{len(signed.message.body.attestations)} attestations; built in "
+        f"{time.perf_counter() - t0:.1f} s, of which the commitments and proofs "
+        f"{blob['kzg_s']:.1f} s")
+    for c in (first, second):
+        c.slot_clock.set_slot(slot)
+
+    def variant(edit):
+        sc = sidecars[0].copy()
+        edit(sc)
+        return sc
+
+    def set_branch(sc):
+        proof = [bytes(b) for b in sc.kzg_commitment_inclusion_proof]
+        proof[3] = b"\x5a" * 32
+        sc.kzg_commitment_inclusion_proof = proof
+
+    header = sidecars[0].signed_block_header.message
+    n_val = len(cell["state"].validators)
+    tampered = {
+        "invalid_kzg_proof": variant(lambda sc: setattr(sc, "kzg_proof",
+                                                        bytes(sidecars[1].kzg_proof))),
+        "invalid_subnet_index": variant(lambda sc: setattr(sc, "index", KZG_BLOCK_BLOBS)),
+        "invalid_inclusion_proof (index)": variant(lambda sc: setattr(sc, "index", 1)),
+        "invalid_inclusion_proof (branch)": variant(set_branch),
+        "invalid_proposer": variant(lambda sc: setattr(
+            sc.signed_block_header.message, "proposer_index",
+            (int(header.proposer_index) + 1) % n_val)),
+    }
+    reasons = {}
+    for want, sc in tampered.items():
+        try:
+            first.process_gossip_blob(sc)
+            reasons[want] = "accepted"
+        except BlobError as e:
+            reasons[want] = e.reason
+    if any(want.split(" ")[0] != got for want, got in reasons.items()):
+        raise SystemExit(f"tampered sidecars gave the wrong reasons: {reasons}")
+
+    # the main path, counted: both arrival orders
+    path = (*bb.KERNELS, t12.final_exp_hard_device, *kzg.KERNELS, *sha.KERNELS,
+            sha.sha256_block_device, *ek.KERNELS)
+    for k in path:
+        k.launches = 0
+    kzg.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got_first = [first.process_block(signed)]
+    missing = first.da_checker.missing_blob_indices(root)
+    got_first += [first.process_gossip_blob(sc) for sc in sidecars]
+    torch.cuda.synchronize()
+    block_first_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    got_second = [second.process_gossip_blob(sc) for sc in sidecars]
+    got_second.append(second.process_block(signed))
+    torch.cuda.synchronize()
+    sidecars_first_ms = (time.perf_counter() - t) * 1e3
+    launched = {k.__name__: k.launches for k in path}
+    miller_calls = t12.miller_reduce_device.calls
+
+    if got_first != [None] * KZG_BLOCK_BLOBS + [root] or missing != list(range(KZG_BLOCK_BLOBS)):
+        raise SystemExit(f"block first: returns {[r and r.hex()[:16] for r in got_first]}, "
+                         f"missing {missing}")
+    if got_second != [None] * KZG_BLOCK_BLOBS + [root]:
+        raise SystemExit(f"sidecars first: returns {[r and r.hex()[:16] for r in got_second]}")
+    want_blobs = b"".join(sc.serialize() for sc in sidecars)
+    parent = bytes(signed.message.parent_root)
+    for name, c in (("block first", first), ("sidecars first", second)):
+        if c.head_root != root or c.fork_choice.proto.node(root)["parent"] != parent:
+            raise SystemExit(f"{name}: the head did not move to the blob block")
+        if c.state_for_block(root).hash_tree_root() != blob["post_root"]:
+            raise SystemExit(f"{name}: post-state root != the block's state root")
+        if c.get_blobs(root) != want_blobs or len(c.da_checker) or c._pending_executed:
+            raise SystemExit(f"{name}: the blobs were not kept, or the checker still waits")
+    plain = first.state_for_block(root).copy()
+    plain._tree_cache = None
+    saved = sha._DEVICE_MIN_PAIRS, sha._DEVICE_FOLD_MIN_LEAVES
+    sha._DEVICE_MIN_PAIRS = sha._DEVICE_FOLD_MIN_LEAVES = 1 << 62
+    host_root = plain.hash_tree_root(dev)
+    sha._DEVICE_MIN_PAIRS, sha._DEVICE_FOLD_MIN_LEAVES = saved
+    del plain
+    if host_root != blob["post_root"]:
+        raise SystemExit(f"blob block post-state root {blob['post_root'].hex()} != hashlib "
+                         f"{host_root.hex()}")
+    try:
+        first.process_gossip_blob(sidecars[0])
+        repeat = "accepted"
+    except BlobError as e:
+        repeat = e.reason
+    if repeat != "repeat_blob":
+        raise SystemExit(f"a repeated sidecar gave {repeat}, not repeat_blob")
+    if not miller_calls or kzg.kzg_fused_device.launches or not launched["pipeline_device"]:
+        raise SystemExit(f"the blob imports' kernels: {launched}, row 10 calls {miller_calls}")
+    log(f"blob block imported in both orders: the head moved to it, post-state root == hashlib "
+        f"{host_root.hex()}, the 6 blobs kept; tampered sidecars rejected {reasons}; a repeated "
+        f"sidecar: {repeat}")
+    times = [c.blob_times[(root, i)] for c in (first, second) for i in range(KZG_BLOCK_BLOBS)]
+    stages = {k: statistics.median(t[k] for t in times) * 1e3
+              for k in ("gossip", "proposer", "signature", "kzg", "commit", "total")}
+    log(json.dumps({"blob_block_import_ms": {"block_first": block_first_ms,
+                                             "sidecars_first": sidecars_first_ms},
+                    "gossip_blob_p50_ms": stages["total"],
+                    "gossip_blob_stages_p50_ms": stages,
+                    "gossip_blob_ms": [t["total"] * 1e3 for t in times],
+                    "launches": launched, "miller_reduce_calls": miller_calls}))
+    log(f"at one blob a call the KZG check takes the unfused path (below "
+        f"{kzg._DEVICE_EVAL_MIN} blobs): row 10 (lh_miller) {miller_calls} calls, row 9 "
+        f"{launched['final_exp_hard_device']} launches; rows 14-16 "
+        f"{[launched[k] for k in ('kzg_fused_device', 'eval_device', 'fr_to_mont_device')]}")
 
 
 SHARD_COUNTS = (1, 2, 4)           # mesh sizes of phase 16 on the one card

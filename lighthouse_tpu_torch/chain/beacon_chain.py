@@ -6,17 +6,19 @@ Port of the attestation part of ``lighthouse_tpu/chain/beacon_chain.py``
 fork choice, the committee shuffle cache, the observed attesters, the
 naive aggregation pool and the validator monitor, and the batch pipeline
 of ``verify_attestations_for_gossip`` (prepare under the import lock, BLS
-outside it, commit under it again).  And of block import (:212-260,
+outside it, commit under it again).  And of block import (:212-348,
 :396-470): ``process_block`` runs the gossip stage, the signature batch
-(outside the lock), execution and ``import_block`` (fork choice's
+(outside the lock), execution, the Deneb data-availability gate
+(``chain/data_availability.py``: a block with blob commitments waits for
+its sidecars, which ``process_gossip_blob`` verifies through
+``chain/blob_verification.py``) and ``import_block`` (fork choice's
 ``on_block``, the block's attestations as votes, its attester slashings,
-the post-state kept by block root).  Not ported (ROADMAP A 15): the store
-(post-states live in a bounded in-memory map), the head recompute, the
-light client, events, the slasher (``slasher`` is None), the validator
-monitor's block hooks, and the execution layer: its check is skipped, as
-the JAX chain skips it when ``execution_layer`` is None.  A block that
-carries blob commitments raises ``NotImplementedError``: the blob
-availability check (``chain/blob_verification.py``) is not ported.
+the post-state and blob data kept by block root, the head recomputed).
+Not ported (ROADMAP A 15): the store (post-states and blob data live in a
+bounded in-memory map), the light client, events, the slasher
+(``slasher`` is None), the validator monitor's block hooks, and the
+execution layer: its check is skipped, as the JAX chain skips it when
+``execution_layer`` is None.
 
 The BLS backend is named per chain (``bls_backend``, ``cuda`` by default:
 the batch verifier on the card; ``reference`` is the host check), and
@@ -33,8 +35,15 @@ from collections import OrderedDict
 import numpy as np
 
 from lighthouse_tpu_torch.chain import attestation_verification as att_verify
+from lighthouse_tpu_torch.chain import blob_verification as blobv
 from lighthouse_tpu_torch.chain import block_verification as bv
-from lighthouse_tpu_torch.chain.caches import EpochIndexedSeen, ShufflingCache, SlotIndexedSeen
+from lighthouse_tpu_torch.chain.caches import (
+    EpochIndexedSeen,
+    ObservedDigests,
+    ShufflingCache,
+    SlotIndexedSeen,
+)
+from lighthouse_tpu_torch.chain.data_availability import DataAvailabilityChecker
 from lighthouse_tpu_torch.chain.validator_monitor import ValidatorMonitor
 from lighthouse_tpu_torch.common.slot_clock import ManualSlotClock
 from lighthouse_tpu_torch.crypto.bls import api as bls
@@ -64,7 +73,7 @@ class BeaconChain:
     POST_STATES = 16            # imported blocks' post-states kept in memory
 
     def __init__(self, spec, anchor_state, *, bls_backend: str = "cuda", device=None,
-                 verify_signatures: bool = True):
+                 verify_signatures: bool = True, kzg_settings=None):
         self.spec = spec
         self.t = make_types(spec.preset)
         self.device = resolve_device(device)
@@ -75,9 +84,11 @@ class BeaconChain:
         self._import_lock = threading.RLock()
         self.slot_clock = ManualSlotClock(int(anchor_state.genesis_time), spec.seconds_per_slot)
         self.anchor_root = anchor_block_root(anchor_state, self.device)
+        self.anchor_state = anchor_state
         self.head_root = self.anchor_root
         self.head_state = anchor_state
-        self.fork_choice = ForkChoice(spec, self.anchor_root, anchor_state)
+        self.fork_choice = ForkChoice(spec, self.anchor_root, anchor_state,
+                                      balances_fn=self._balances_for_checkpoint)
         self.shuffling_cache = ShufflingCache()
         self.observed_attesters = EpochIndexedSeen()
         self.observed_block_producers = SlotIndexedSeen()
@@ -88,6 +99,15 @@ class BeaconChain:
         self.validator_monitor = ValidatorMonitor()
         self.slasher = None
         self._advanced_states: dict[bytes, object] = {}
+        # blobs: the KZG setup, accepted sidecars, blocks waiting for theirs
+        # and the blob data of the imported blocks whose post-states are kept
+        self.kzg_settings = kzg_settings
+        self.observed_blob_sidecars = ObservedDigests()
+        self.da_checker = DataAvailabilityChecker(spec)
+        self._pending_executed: dict[bytes, bv.ExecutionPendingBlock] = {}
+        self._blobs: dict[bytes, bytes] = {}
+        self.blob_times: dict[tuple[bytes, int], dict] = {}
+        self._pruned_finalized_epoch = self.fork_choice.finalized.epoch
 
     # -- plumbing -----------------------------------------------------------
 
@@ -124,8 +144,29 @@ class BeaconChain:
         """Post-state of ``block_root``: the anchor's, or an imported block's
         while it is among the ``POST_STATES`` most recent."""
         if block_root == self.anchor_root:
-            return self.head_state
+            return self.anchor_state
         return self._post_states.get(block_root)
+
+    def _balances_for_checkpoint(self, block_root: bytes) -> np.ndarray:
+        """Fork choice's balances at a checkpoint: the effective balances of
+        the block's post-state (the head's if it is gone), zero for the
+        inactive."""
+        st = self.state_for_block(block_root)
+        if st is None:
+            st = self.head_state
+        eb = np.asarray(st.validators.effective_balance, np.int64).copy()
+        eb[~st.validators.is_active(self.spec.compute_epoch_at_slot(int(st.slot)))] = 0
+        return eb
+
+    def recompute_head(self) -> bytes:
+        """Fork choice's head; the chain's head follows it when its
+        post-state is kept."""
+        head = self.fork_choice.get_head(self.current_slot())
+        if head != self.head_root:
+            st = self.state_for_block(head)
+            if st is not None:
+                self.head_root, self.head_state = head, st
+        return self.head_root
 
     def block_exists(self, block_root: bytes) -> bool:
         return block_root == self.anchor_root or block_root in self._post_states
@@ -224,19 +265,22 @@ class BeaconChain:
         except ForkChoiceError:
             pass
 
-    # -- block import ---------------------------------------------------------
+    # -- block import -------------------------------------------------------
 
-    def process_block(self, signed_block, source: str = "gossip") -> bytes:
-        """Gossip checks, the signature batch, execution and import; returns
-        the block root.  The import lock is held for the gossip stage and
-        for execute-and-import; the signature batch runs between the two
-        holds.  ``block_times[root]`` gets the seconds of ``gossip``,
-        ``signatures``, ``copy``, ``advance``, ``transition``,
-        ``state_root``, ``import`` and ``total``."""
-        if len(signed_block.message.body.blob_kzg_commitments):
-            raise NotImplementedError(
-                "a block with blob commitments needs the blob availability check of "
-                "chain/blob_verification.py, which is not ported")
+    def process_block(self, signed_block, blobs_ssz: bytes | None = None,
+                      source: str = "gossip") -> bytes | None:
+        """Gossip checks, the signature batch, execution, the availability
+        gate and import; returns the block root, or None when the block
+        carries blob commitments whose sidecars have not all arrived: it
+        waits in ``da_checker`` and imports when the last one does
+        (``process_gossip_blob``).  A caller that already holds the block's
+        blob data (``blobs_ssz``, its sidecars' SSZ end to end, as sync
+        fetches it) imports at once.  The import lock is held for the
+        gossip stage and for execute-and-import; the signature batch runs
+        between the two holds.  ``block_times[root]`` gets the seconds of
+        ``gossip``, ``signatures``, ``copy``, ``advance``, ``transition``,
+        ``state_root``, ``import`` (of which ``head``, fork choice's head
+        recomputed) and ``total`` of a block this call imports."""
         t0 = time.perf_counter()
         with self._import_lock:
             gossip = bv.verify_block_for_gossip(self, signed_block, source)
@@ -248,15 +292,90 @@ class BeaconChain:
                 raise bv.BlockError("duplicate")
             pending = bv.execute_block(self, sigv)
             t3 = time.perf_counter()
-            root = self.import_block(pending)
+            root = self._gate_and_import(pending, blobs_ssz)
         t4 = time.perf_counter()
-        self.block_times[root] = dict(gossip=t1 - t0, signatures=t2 - t1, **pending.timings,
-                                      **{"import": t4 - t3, "total": t4 - t0})
+        if root is not None:
+            self.block_times[root] = dict(gossip=t1 - t0, signatures=t2 - t1, **pending.timings,
+                                          **{"import": t4 - t3, "total": t4 - t0})
         return root
 
-    def import_block(self, pending: bv.ExecutionPendingBlock) -> bytes:
+    def _gate_and_import(self, pending: bv.ExecutionPendingBlock, blobs_ssz):
+        """The data-availability gate, under the import lock: a block with
+        blob commitments and no blob data waits for its sidecars (its
+        executed state kept in ``_pending_executed``, in step with the
+        checker's capacity); any other imports now."""
+        root = pending.block_root
+        if len(pending.signed_block.message.body.blob_kzg_commitments) and blobs_ssz is None:
+            self._pending_executed[root] = pending
+            while len(self._pending_executed) > self.da_checker.capacity:
+                del self._pending_executed[next(iter(self._pending_executed))]
+            availability = self.da_checker.put_pending_executed_block(root,
+                                                                      pending.signed_block)
+            return self._import_available(availability) if availability.is_available else None
+        # a copy of this block parked for its sidecars goes, or late
+        # sidecars would complete it and import the root again
+        self._pending_executed.pop(root, None)
+        return self.import_block(pending, blobs_ssz)
+
+    def process_gossip_blob(self, sidecar) -> bytes | None:
+        """Verify one gossip blob sidecar; import its block if that
+        completes the block's availability (returns its root) and None
+        otherwise.  The gossip checks and the header signature hold the
+        import lock, the KZG proof check runs outside it, and the duplicate
+        mark and the checker's commit take the lock again: the mark lands
+        only after the whole check passed, so a corrupted copy cannot
+        block the honest sidecar, and only the first of two concurrent
+        copies commits.  ``blob_times[(root, index)]`` (the newest
+        sidecars') gets the seconds of ``gossip``, ``proposer``,
+        ``signature``, ``kzg``, ``commit`` (the import included when this
+        sidecar completes the block) and ``total``."""
+        t0 = time.perf_counter()
+        timings: dict = {}
+        with self._import_lock:
+            verified = blobv.verify_blob_sidecar_for_gossip(self, sidecar, timings)
+        t1 = time.perf_counter()
+        if not blobv.validate_blobs(self.kzg_settings, [sidecar.kzg_commitment], [sidecar.blob],
+                                    [sidecar.kzg_proof], self.device):
+            raise blobv.BlobError("invalid_kzg_proof")
+        t2 = time.perf_counter()
+        root = None
+        with self._import_lock:
+            epoch = self.spec.compute_epoch_at_slot(int(sidecar.signed_block_header.message.slot))
+            if self.observed_blob_sidecars.observe(
+                    epoch, blobv.sidecar_digest(verified.block_root, sidecar)):
+                # a concurrent copy won the commit while this one's KZG
+                # check ran: only the first mark may feed the checker
+                return None
+            availability = self.da_checker.put_verified_blobs(verified.block_root, [verified])
+            if availability.is_available:
+                root = self._import_available(availability)
+        t3 = time.perf_counter()
+        self.blob_times[(verified.block_root, int(sidecar.index))] = dict(
+            gossip=t1 - t0 - timings["proposer"] - timings["signature"], **timings,
+            kzg=t2 - t1, commit=t3 - t2, total=t3 - t0)
+        while len(self.blob_times) > self.POST_STATES * self.spec.preset.max_blobs_per_block:
+            del self.blob_times[next(iter(self.blob_times))]
+        return root
+
+    def _import_available(self, availability) -> bytes | None:
+        pending = self._pending_executed.pop(availability.block_root, None)
+        if pending is None:
+            return None             # the block came by another path already
+        blobs_ssz = b"".join(s.serialize() for s in (availability.blobs or []))
+        return self.import_block(pending, blobs_ssz or None)
+
+    def get_blobs(self, block_root: bytes) -> bytes | None:
+        """The blob sidecars of an imported block, SSZ end to end in index
+        order, while its post-state is among the ``POST_STATES`` most
+        recent (the JAX chain's ``store.get_blobs``)."""
+        return self._blobs.get(block_root)
+
+    def import_block(self, pending: bv.ExecutionPendingBlock,
+                     blobs_ssz: bytes | None = None) -> bytes:
         """Fork choice's ``on_block``, the block's attestations as votes
-        and its attester slashings, then the post-state under the root."""
+        and its attester slashings, then the post-state (and the blob
+        data, if any) under the root, the head recomputed; a finalized
+        checkpoint that moved prunes the availability checker."""
         block = pending.signed_block.message
         root = pending.block_root
         state = pending.post_state
@@ -281,6 +400,28 @@ class BeaconChain:
             if both.size:
                 self.fork_choice.on_attester_slashing(both)
         self._post_states[root] = state
+        if blobs_ssz is not None:
+            self._blobs[root] = blobs_ssz
         while len(self._post_states) > self.POST_STATES:
-            self._post_states.popitem(last=False)
+            old, _ = self._post_states.popitem(last=False)
+            self._blobs.pop(old, None)
+        t0 = time.perf_counter()
+        self.recompute_head()
+        pending.timings["head"] = time.perf_counter() - t0
+        self._on_finalized()
         return root
+
+    def _on_finalized(self) -> None:
+        """Once fork choice's finalized checkpoint moves: its balance
+        snapshots that can no longer be justified go, and so do blocks
+        waiting for sidecars below the finalized slot, from the checker and
+        from ``_pending_executed`` (the JAX chain's ``_on_finalized``)."""
+        epoch = self.fork_choice.finalized.epoch
+        if epoch <= self._pruned_finalized_epoch:
+            return
+        self._pruned_finalized_epoch = epoch
+        fin_slot = self.spec.compute_start_slot_at_epoch(epoch)
+        self.fork_choice.prune_balance_snapshots()
+        self.da_checker.prune_finalized(fin_slot)
+        self._pending_executed = {r: p for r, p in self._pending_executed.items()
+                                  if int(p.signed_block.message.slot) >= fin_slot}

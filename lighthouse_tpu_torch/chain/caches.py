@@ -1,14 +1,16 @@
 """Chain caches of the attestation and block paths: committee shuffles,
 the observed-attester bitmaps and the observed block producers.
 
-Port of ``ShufflingCache`` (:21), ``EpochIndexedSeen`` (:106-160) and
-``SlotIndexedSeen`` (:161-180) of ``lighthouse_tpu/chain/caches.py``.
+Port of ``ShufflingCache`` (:21), ``EpochIndexedSeen`` (:106-160),
+``SlotIndexedSeen`` (:161-180) and ``ObservedDigests`` (:183-205) of
+``lighthouse_tpu/chain/caches.py``.
 Observed attesters are epoch-keyed boolean numpy columns over validator
 index, so a batch is one vectorised gather or scatter.
 """
 
 from __future__ import annotations
 
+import hashlib
 from collections import OrderedDict
 
 import numpy as np
@@ -103,3 +105,27 @@ class SlotIndexedSeen:
     def is_seen(self, slot: int, index: int) -> bool:
         """Read-only probe, for the check before the proposer's signature."""
         return index in self._by_slot.get(slot, ())
+
+
+class ObservedDigests:
+    """Epoch-keyed digests of seen objects (the blob sidecars a chain has
+    accepted: block root and index)."""
+
+    def __init__(self, retained_epochs: int = 4):
+        self.retained = retained_epochs
+        self._by_epoch: dict[int, set[bytes]] = {}
+
+    def observe(self, epoch: int, data: bytes) -> bool:
+        """Mark ``data`` seen in ``epoch``; True if it already was."""
+        d = hashlib.sha256(data).digest()
+        seen = self._by_epoch.setdefault(epoch, set())
+        for old in [e for e in self._by_epoch if e + self.retained < epoch]:
+            del self._by_epoch[old]
+        if d in seen:
+            return True
+        seen.add(d)
+        return False
+
+    def is_seen(self, epoch: int, data: bytes) -> bool:
+        """Read-only probe, for the checks before the signature."""
+        return hashlib.sha256(data).digest() in self._by_epoch.get(epoch, ())

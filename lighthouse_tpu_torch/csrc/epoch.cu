@@ -6,12 +6,25 @@
 //   _fused_epoch_pass (:101, jitted at :172) -> k_fused_epoch_pass via lh_fused_epoch_pass
 //   _shuffle_rounds   (:224, jitted at :250) -> k_shuffle_rounds   via lh_shuffle_rounds
 //
-// k_fused_epoch_pass: one thread per validator lane.  It reads 46 bytes of
-// columns and writes 24 bytes per lane, against a few dozen int64 operations
-// and one 64-bit division, so it is bound by device memory (about 70 bytes
-// per lane).  The three gather tables and the parameters (7 * k + 11 int64,
-// 1,936 bytes for Deneb's k = 33) are copied into shared memory by every
-// block, so each lane's gathers hit shared memory, not device memory.
+// k_fused_epoch_pass: bound by device memory.  A lane reads 46 bytes of
+// columns and writes 24 (70 bytes) against a few dozen int64 operations and
+// two 64-bit divisions by per-launch constants.  The parent ran a thread a
+// lane in 4,096 blocks of 256 at 2^20 lanes, each staging the tables (7 k +
+// 11 int64, 1,936 bytes at k = 33) behind a barrier, each thread making
+// nine narrow loads (1, 4 and 8 bytes).  Above half the L2's worth of
+// columns a grid of the card's SMs times the blocks resident on one stages
+// the tables once a block and walks the lanes two a thread: each column's
+// pair in one streaming load (16 bytes for an int64 column, so a warp's
+// loads are 512 contiguous bytes), all issued before the arithmetic, and
+// each output pair in one 16-byte streaming store (epoch.cuh
+// pair_fused_epoch_pass).  Any count and any offset: the lane before the
+// columns' first even-aligned lane and the last odd one run alone in the
+// same launch (epoch_split), and columns whose offsets disagree run every
+// lane alone.  Below half the L2 (a mesh shard, whose columns may still be
+// in it from their upload) every lane runs alone, a thread a lane, the
+// launch latency-bound.  Four and eight lanes a thread, a reciprocal
+// multiply in place of the divisions, and cached pairs at 2^20 lanes all
+// measured slower (PERF.md, section 6).
 //
 // k_shuffle_rounds: every round of every position, round by round.  One
 // byte load per round and position at a data-dependent address.  Read
@@ -48,17 +61,17 @@ using namespace epoch;
 namespace {
 
 constexpr int kThreads = 256;
+constexpr long long kEpochBytesPerLane = 70;   // 46 read, 24 written
 constexpr int kMaxRounds = 256;   // the round number is one byte of the source message
 
+// PAIRS false: every lane alone (split.pairs is 0); an instantiation of its
+// own, so that its registers, and with them its blocks resident an SM, are
+// the lane loop's alone
+template <bool PAIRS>
 __global__ void __launch_bounds__(kThreads)
-k_fused_epoch_pass(long long n, int k, const int64_t* __restrict__ reward,
+k_fused_epoch_pass(long long n, EpochSplit split, int k, const int64_t* __restrict__ reward,
                    const int64_t* __restrict__ penalty, const int64_t* __restrict__ slash,
-                   const int64_t* __restrict__ params, const int32_t* __restrict__ eff_incr,
-                   const int64_t* __restrict__ balances, const int64_t* __restrict__ scores,
-                   const uint8_t* __restrict__ prev_part, const uint8_t* __restrict__ slashed,
-                   const int64_t* __restrict__ activation, const int64_t* __restrict__ exit_epoch,
-                   const int64_t* __restrict__ withdrawable, int64_t* __restrict__ scores_out,
-                   int64_t* __restrict__ balances_out, int64_t* __restrict__ eff_out) {
+                   const int64_t* __restrict__ params, EpochCols cols) {
     extern __shared__ int64_t tables[];   // reward 3k | penalty 3k | slash k | params
     const int total = 7 * k + N_PARAMS;
     for (int j = threadIdx.x; j < total; j += blockDim.x) {
@@ -70,11 +83,9 @@ k_fused_epoch_pass(long long n, int k, const int64_t* __restrict__ reward,
         tables[j] = v;
     }
     __syncthreads();
-    const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (i < n)
-        lane_fused_epoch_pass(i, k, tables, tables + 3 * k, tables + 6 * k, tables + 7 * k,
-                              eff_incr, balances, scores, prev_part, slashed, activation,
-                              exit_epoch, withdrawable, scores_out, balances_out, eff_out);
+    const EpochTables tab{tables, tables + 3 * k, tables + 6 * k, tables + 7 * k};
+    thread_fused_epoch_pass<PAIRS>(blockIdx.x * (long long)blockDim.x + threadIdx.x,
+                                   (long long)gridDim.x * blockDim.x, n, split, k, tab, cols);
 }
 
 constexpr int kMaxStages = 2;
@@ -267,8 +278,6 @@ cudaError_t launch_shuffle(long long count, int rounds, long long row_bytes, con
     return cudaGetLastError();
 }
 
-inline unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
-
 }  // namespace
 
 extern "C" {
@@ -286,16 +295,57 @@ int lh_fused_epoch_pass(long long n, int k, const void* reward, const void* pena
                         void* eff_out, void* stream) {
     const size_t smem = (size_t)(7 * k + N_PARAMS) * sizeof(int64_t);
     if (k < 1 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-    if (n > 0) {
-        k_fused_epoch_pass<<<blocks(n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-            n, k, static_cast<const int64_t*>(reward), static_cast<const int64_t*>(penalty),
-            static_cast<const int64_t*>(slash), static_cast<const int64_t*>(params),
-            static_cast<const int32_t*>(eff_incr), static_cast<const int64_t*>(balances),
-            static_cast<const int64_t*>(scores), static_cast<const uint8_t*>(prev_part),
-            static_cast<const uint8_t*>(slashed), static_cast<const int64_t*>(activation),
-            static_cast<const int64_t*>(exit_epoch), static_cast<const int64_t*>(withdrawable),
-            static_cast<int64_t*>(scores_out), static_cast<int64_t*>(balances_out),
-            static_cast<int64_t*>(eff_out));
+    if (n <= 0) return (int)cudaGetLastError();
+    // the card's L2 and the grid (the SMs times the blocks resident on one),
+    // once a device and table size
+    static int l2[64], grid[64], grid_smem[64];
+    int dev = 0;
+    cudaError_t err;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    if (dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (grid_smem[dev] != (int)smem) {
+        int sms = 0, per_sm = 0;
+        if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+                cudaSuccess ||
+            (err = cudaDeviceGetAttribute(&l2[dev], cudaDevAttrL2CacheSize, dev)) !=
+                cudaSuccess ||
+            (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &per_sm, k_fused_epoch_pass<true>, kThreads, smem)) != cudaSuccess)
+            return (int)err;
+        if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+        grid[dev] = sms * per_sm;
+        grid_smem[dev] = (int)smem;
+    }
+    const EpochCols cols{static_cast<const int32_t*>(eff_incr),
+                         static_cast<const int64_t*>(balances),
+                         static_cast<const int64_t*>(scores),
+                         static_cast<const uint8_t*>(prev_part),
+                         static_cast<const uint8_t*>(slashed),
+                         static_cast<const int64_t*>(activation),
+                         static_cast<const int64_t*>(exit_epoch),
+                         static_cast<const int64_t*>(withdrawable),
+                         static_cast<int64_t*>(scores_out),
+                         static_cast<int64_t*>(balances_out),
+                         static_cast<int64_t*>(eff_out)};
+    const auto* rw = static_cast<const int64_t*>(reward);
+    const auto* pn = static_cast<const int64_t*>(penalty);
+    const auto* sl = static_cast<const int64_t*>(slash);
+    const auto* pr = static_cast<const int64_t*>(params);
+    const auto st = static_cast<cudaStream_t>(stream);
+    // columns that fit half the L2 (a mesh shard) may still be there from
+    // their upload: every lane alone, a thread a lane, as many blocks as
+    // that takes; above that, streamed pairs on a grid the card holds
+    if (n * kEpochBytesPerLane <= l2[dev] / 2) {
+        k_fused_epoch_pass<false><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, smem,
+                                    st>>>(n, EpochSplit{n, 0}, k, rw, pn, sl, pr, cols);
+    } else {
+        const EpochSplit split = epoch_split(n, cols);
+        const long long rest = n - split.pairs * EPOCH_LANES;
+        const long long work = split.pairs > rest ? split.pairs : rest;
+        long long blocks = (work + kThreads - 1) / kThreads;
+        if (blocks > grid[dev]) blocks = grid[dev];
+        k_fused_epoch_pass<true><<<(unsigned)blocks, kThreads, smem, st>>>(n, split, k, rw, pn,
+                                                                             sl, pr, cols);
     }
     return (int)cudaGetLastError();
 }

@@ -6,7 +6,8 @@
 // plan too, so the same code also compiles as host C++ (g++ -x c++), which
 // the CPU tests use to hold it to the plain PyTorch versions
 // (lighthouse_tpu_torch/ops/epoch_kernels.py) without a card:
-// host_shuffle_rounds runs k_shuffle_rounds's blocks and threads on the host.
+// host_fused_epoch_pass and host_shuffle_rounds run k_fused_epoch_pass's
+// and k_shuffle_rounds's blocks and threads on the host.
 
 #pragma once
 #include <cstdint>
@@ -45,39 +46,64 @@ constexpr int TIMELY_HEAD_FLAG_INDEX = 2;
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
 
-// Lane i of k_fused_epoch_pass, in spec order: inactivity-score update,
-// flag rewards and penalties gathered from the per-increment tables, the
-// score-scaled inactivity penalty, proportional slashings, effective-balance
-// hysteresis.  Tables: reward and penalty int64[3, k], slash int64[k],
-// params int64[N_PARAMS].  Epoch columns arrive clamped below 2^62, so
-// prev + 1 cannot overflow.  The table index is clamped to [0, k) as JAX's
-// gather clamps (the host guard keeps every increment count in range).
+// The columns of one fused-pass launch: eff_incr int32[n], balances,
+// scores, activation, exit_epoch, withdrawable int64[n] (epochs clamped
+// below 2^62, so prev + 1 cannot overflow), prev_part and slashed uint8[n];
+// the three int64[n] outputs.
+struct EpochCols {
+    const int32_t* eff_incr;
+    const int64_t* balances;
+    const int64_t* scores;
+    const uint8_t* prev_part;
+    const uint8_t* slashed;
+    const int64_t* activation;
+    const int64_t* exit_epoch;
+    const int64_t* withdrawable;
+    int64_t* scores_out;
+    int64_t* balances_out;
+    int64_t* eff_out;
+};
+
+// The tables and parameters of a launch: reward and penalty int64[3, k],
+// slash int64[k], params int64[N_PARAMS].
+struct EpochTables {
+    const int64_t* reward;
+    const int64_t* penalty;
+    const int64_t* slash;
+    const int64_t* params;
+};
+
+struct EpochLane {
+    int64_t sc, bal, eff;
+};
+
+// One validator lane of the fused pass, in spec order: inactivity-score
+// update, flag rewards and penalties gathered from the per-increment
+// tables, the score-scaled inactivity penalty, proportional slashings,
+// effective-balance hysteresis.  The table index is clamped to [0, k) as
+// JAX's gather clamps (the host guard keeps every increment count in
+// range).
 //
 // Division: jnp's // and % floor, C++'s / and % truncate.  They agree here
 // because every operand is non-negative: eff * sc with eff >= 0 and a score
 // that never drops below zero (each decrement is a min with the score), and
-// bal after max(..., 0).
-__device__ __forceinline__ void lane_fused_epoch_pass(
-    long long i, int k, const int64_t* reward, const int64_t* penalty, const int64_t* slash,
-    const int64_t* params, const int32_t* eff_incr, const int64_t* balances,
-    const int64_t* scores, const uint8_t* prev_part, const uint8_t* slashed,
-    const int64_t* activation, const int64_t* exit_epoch, const int64_t* withdrawable,
-    int64_t* scores_out, int64_t* balances_out, int64_t* eff_out) {
+// bal after max(..., 0).  Both are 64-bit divisions by per-launch
+// constants: a multiply by a reciprocal worked out once a block measured
+// slower at small launches and 2% faster at 2^20 lanes (PERF.md, section 6).
+__device__ __forceinline__ EpochLane epoch_lane(
+    int k, const EpochTables& t, int32_t incr_count, int64_t bal, int64_t sc, unsigned part,
+    bool is_slashed, int64_t activation, int64_t exit_epoch, int64_t wd) {
+    const int64_t* params = t.params;
     const int64_t prev = params[P_PREV_EPOCH];
-    const int32_t incr_count = eff_incr[i];
     const int kidx = incr_count < 0 ? 0 : (incr_count >= k ? k - 1 : incr_count);
-    const int64_t eff = (int64_t)incr_count * params[P_INCREMENT];
-    const bool is_slashed = slashed[i] != 0;
-    const unsigned part = prev_part[i];
-    const int64_t wd = withdrawable[i];
+    const int64_t incr = params[P_INCREMENT];
+    const int64_t eff = (int64_t)incr_count * incr;
 
-    const bool active_prev = activation[i] <= prev && prev < exit_epoch[i];
+    const bool active_prev = activation <= prev && prev < exit_epoch;
     const bool eligible = active_prev || (is_slashed && prev + 1 < wd);
     const bool unslashed_active = active_prev && !is_slashed;
     const bool target = unslashed_active && ((part >> TIMELY_TARGET_FLAG_INDEX) & 1u);
 
-    int64_t sc = scores[i];
-    int64_t bal = balances[i];
     if (params[P_REWARDS] != 0) {
         // inactivity updates
         if (eligible && target) sc -= min64(1, sc);
@@ -87,22 +113,186 @@ __device__ __forceinline__ void lane_fused_epoch_pass(
         int64_t delta = 0;
         for (int f = 0; f < 3; ++f) {
             const bool participated = unslashed_active && ((part >> f) & 1u);
-            if (eligible && participated) delta += reward[f * k + kidx];
+            if (eligible && participated) delta += t.reward[f * k + kidx];
             if (f != TIMELY_HEAD_FLAG_INDEX && eligible && !participated)
-                delta -= penalty[f * k + kidx];
+                delta -= t.penalty[f * k + kidx];
         }
         if (eligible && !target) delta -= (eff * sc) / params[P_INACT_DENOM];
         bal = max64(bal + delta, 0);
     }
     // proportional slashings
-    if (is_slashed && wd == params[P_SLASH_TARGET]) bal = max64(bal - slash[kidx], 0);
+    if (is_slashed && wd == params[P_SLASH_TARGET]) bal = max64(bal - t.slash[kidx], 0);
     // effective-balance hysteresis
-    const int64_t incr = params[P_INCREMENT];
-    const bool update = bal + params[P_HYST_DOWN] < eff || eff + params[P_HYST_UP] < bal;
-    scores_out[i] = sc;
-    balances_out[i] = bal;
-    eff_out[i] = update ? min64(bal - bal % incr, params[P_MAX_EFF]) : eff;
+    EpochLane out{sc, bal, eff};
+    if (bal + params[P_HYST_DOWN] < eff || eff + params[P_HYST_UP] < bal)
+        out.eff = min64(bal - bal % incr, params[P_MAX_EFF]);
+    return out;
 }
+
+// Lane i alone, in narrow loads and stores: the head and tail of a launch.
+__device__ __forceinline__ void lane_fused_epoch_pass(long long i, int k, const EpochTables& t,
+                                                      const EpochCols& c) {
+    const EpochLane o = epoch_lane(k, t, c.eff_incr[i], c.balances[i], c.scores[i],
+                                   c.prev_part[i], c.slashed[i] != 0, c.activation[i],
+                                   c.exit_epoch[i], c.withdrawable[i]);
+    c.scores_out[i] = o.sc;
+    c.balances_out[i] = o.bal;
+    c.eff_out[i] = o.eff;
+}
+
+// Lanes a thread takes together.  Two make a warp's 16-byte loads of an
+// int64 column contiguous (512 bytes); 4 and 8 measured 15-45% slower
+// (PERF.md, section 6).
+constexpr int EPOCH_LANES = 2;
+
+// A column's two values at src in one streaming load (evict first: each
+// column byte is read once) of 16, 8 or 2 bytes, into registers; src
+// aligned to the load's width.
+__device__ __forceinline__ void load_pair(int64_t (&dst)[2], const int64_t* src) {
+#ifdef __CUDACC__
+    const longlong2 v = __ldcs(reinterpret_cast<const longlong2*>(src));
+    dst[0] = v.x;
+    dst[1] = v.y;
+#else
+    dst[0] = src[0];
+    dst[1] = src[1];
+#endif
+}
+
+__device__ __forceinline__ void load_pair(int32_t (&dst)[2], const int32_t* src) {
+#ifdef __CUDACC__
+    const int2 v = __ldcs(reinterpret_cast<const int2*>(src));
+    dst[0] = v.x;
+    dst[1] = v.y;
+#else
+    dst[0] = src[0];
+    dst[1] = src[1];
+#endif
+}
+
+__device__ __forceinline__ void load_pair(uint32_t (&dst)[2], const uint8_t* src) {
+#ifdef __CUDACC__
+    const uint32_t v = __ldcs(reinterpret_cast<const unsigned short*>(src));
+    dst[0] = v & 0xff;
+    dst[1] = v >> 8;
+#else
+    dst[0] = src[0];
+    dst[1] = src[1];
+#endif
+}
+
+// Two int64 values to dst in one 16-byte streaming store; dst 16-byte
+// aligned.
+__device__ __forceinline__ void store_pair(int64_t* dst, const int64_t (&src)[2]) {
+#ifdef __CUDACC__
+    __stcs(reinterpret_cast<longlong2*>(dst), make_longlong2(src[0], src[1]));
+#else
+    dst[0] = src[0];
+    dst[1] = src[1];
+#endif
+}
+
+// Lanes i0 and i0 + 1 of the fused pass: every column's two values in one
+// load each, all issued before any arithmetic, then the three outputs in
+// one 16-byte store each.  Every column's lane i0 is aligned to two
+// elements (see epoch_split).
+__device__ __forceinline__ void pair_fused_epoch_pass(long long i0, int k, const EpochTables& t,
+                                                      const EpochCols& c) {
+    int32_t incr[2];
+    int64_t bal[2], sc[2], act[2], ex[2], wd[2];
+    uint32_t part[2], sl[2];
+    load_pair(incr, c.eff_incr + i0);
+    load_pair(bal, c.balances + i0);
+    load_pair(sc, c.scores + i0);
+    load_pair(act, c.activation + i0);
+    load_pair(ex, c.exit_epoch + i0);
+    load_pair(wd, c.withdrawable + i0);
+    load_pair(part, c.prev_part + i0);
+    load_pair(sl, c.slashed + i0);
+    int64_t o_sc[2], o_bal[2], o_eff[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+        const EpochLane o = epoch_lane(k, t, incr[j], bal[j], sc[j], part[j], sl[j] != 0, act[j],
+                                       ex[j], wd[j]);
+        o_sc[j] = o.sc;
+        o_bal[j] = o.bal;
+        o_eff[j] = o.eff;
+    }
+    store_pair(c.scores_out + i0, o_sc);
+    store_pair(c.balances_out + i0, o_bal);
+    store_pair(c.eff_out + i0, o_eff);
+}
+
+// How a launch over n lanes splits: lanes [0, head) and [head + 2 * pairs,
+// n) run one at a time (lane_fused_epoch_pass), the pairs between them two at
+// a time (pair_fused_epoch_pass).  A column's lane phase is its address in
+// elements mod 2; where all eleven columns share a phase p, the pairs start
+// at lane p, where every column is aligned to two elements (so to 16 bytes
+// for the int64 ones).  Columns of unequal phase (views into different
+// offsets of their storage) run every lane alone.
+struct EpochSplit {
+    long long head, pairs;
+};
+
+inline EpochSplit epoch_split(long long n, const EpochCols& c) {
+    auto phase = [](const void* p, unsigned size) {
+        return (long long)((reinterpret_cast<uintptr_t>(p) / size) % EPOCH_LANES);
+    };
+    const long long ph[] = {
+        phase(c.eff_incr, 4), phase(c.balances, 8), phase(c.scores, 8),
+        phase(c.prev_part, 1), phase(c.slashed, 1), phase(c.activation, 8),
+        phase(c.exit_epoch, 8), phase(c.withdrawable, 8), phase(c.scores_out, 8),
+        phase(c.balances_out, 8), phase(c.eff_out, 8)};
+    for (long long p : ph)
+        if (p != ph[0]) return EpochSplit{n, 0};
+    const long long head = ph[0] < n ? ph[0] : n;
+    return EpochSplit{head, (n - head) / EPOCH_LANES};
+}
+
+// Thread t of a launch of `stride` threads: pairs t, t + stride, ..., then
+// the head and tail lanes, one at a time, in the same stride.  PAIRS
+// false leaves the pair loop out (a split with no pairs).
+template <bool PAIRS>
+__device__ __forceinline__ void thread_fused_epoch_pass(long long t, long long stride,
+                                                        long long n, const EpochSplit& s, int k,
+                                                        const EpochTables& tab,
+                                                        const EpochCols& c) {
+    if constexpr (PAIRS)
+        for (long long g = t; g < s.pairs; g += stride)
+            pair_fused_epoch_pass(s.head + g * EPOCH_LANES, k, tab, c);
+    const long long body_end = s.head + s.pairs * EPOCH_LANES;
+    const long long rest = s.head + (n - body_end);
+    for (long long r = t; r < rest; r += stride)
+        lane_fused_epoch_pass(r < s.head ? r : body_end + (r - s.head), k, tab, c);
+}
+
+#ifndef __CUDACC__
+// k_fused_epoch_pass on the host: every thread of a grid of `blocks` x
+// `threads` in turn, after the split's check that each pair's loads and
+// stores are aligned to their widths.  Returns 0, or -1 if one is not.
+inline int host_fused_epoch_pass(long long n, int k, const int64_t* reward,
+                                 const int64_t* penalty, const int64_t* slash,
+                                 const int64_t* params, const EpochCols& c, long long blocks,
+                                 int threads) {
+    const EpochSplit s = epoch_split(n, c);
+    if (s.pairs) {
+        const long long i = s.head;
+        auto at = [](const void* p, uintptr_t align) {
+            return reinterpret_cast<uintptr_t>(p) % align == 0;
+        };
+        if (!(at(c.eff_incr + i, 8) && at(c.balances + i, 16) && at(c.scores + i, 16) &&
+              at(c.prev_part + i, 2) && at(c.slashed + i, 2) && at(c.activation + i, 16) &&
+              at(c.exit_epoch + i, 16) && at(c.withdrawable + i, 16) &&
+              at(c.scores_out + i, 16) && at(c.balances_out + i, 16) && at(c.eff_out + i, 16)))
+            return -1;
+    }
+    const EpochTables tab{reward, penalty, slash, params};
+    const long long stride = blocks * threads;
+    for (long long t = 0; t < stride; ++t)
+        thread_fused_epoch_pass<true>(t, stride, n, s, k, tab, c);
+    return 0;
+}
+#endif
 
 // ---- the swap-or-not rounds (k_shuffle_rounds) -----------------------------
 // pivots int32[rounds] in [0, count); src uint8[rounds, row_bytes] with

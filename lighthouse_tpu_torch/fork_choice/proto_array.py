@@ -1,13 +1,13 @@
-"""The proto-array node store: what attestation verification and block
-import read and write of it.
+"""The proto-array node store: block insertion, ancestry and the head.
 
-Port of the part of ``lighthouse_tpu/fork_choice/proto_array.py`` that the
-gossip attestation path and block import run: the struct-of-arrays node
-columns with each node's justified, finalized and unrealized checkpoint
-epochs and execution status, adding a node (``add_block`` :92),
-membership (``__contains__`` :74), ``indices``, ``slots`` and
-``get_ancestor`` (:253).  Weights, viability and the head walk are not
-ported (ROADMAP A 15).
+Port of ``lighthouse_tpu/fork_choice/proto_array.py``: the struct-of-arrays
+node columns with each node's weight, best child and best descendant,
+justified, finalized and unrealized checkpoint epochs and execution status,
+adding a node (``add_block`` :92), membership (``__contains__`` :74),
+``indices``, ``slots``, the head's viability filter, score changes and walk
+(``_viable_mask`` :131, ``apply_score_changes`` :169, ``find_head`` :233)
+and ``get_ancestor`` (:253).  Pruning and the execution-status updates are
+not ported (ROADMAP A 15).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 
 NONE = -1
 EXEC_IRRELEVANT = 0  # no payload to verify (no execution engine wired)
+EXEC_INVALID = 3
 
 
 @dataclass(frozen=True)
@@ -35,7 +36,8 @@ class ProtoArray:
 
     _GROW = 1024
 
-    _COLUMNS = {"slots": (np.int64, 0), "parents": (np.int32, NONE),
+    _COLUMNS = {"slots": (np.int64, 0), "parents": (np.int32, NONE), "weights": (np.int64, 0),
+                "best_child": (np.int32, NONE), "best_descendant": (np.int32, NONE),
                 "justified_epoch": (np.int64, 0), "finalized_epoch": (np.int64, 0),
                 "unrealized_justified_epoch": (np.int64, 0),
                 "unrealized_finalized_epoch": (np.int64, 0),
@@ -98,6 +100,87 @@ class ProtoArray:
                     unrealized_finalized_epoch=int(self.unrealized_finalized_epoch[i]),
                     justified_root=self.justified_roots[i],
                     execution_status=int(self.execution_status[i]))
+
+    # -- the head -------------------------------------------------------------
+
+    def _viable_mask(self, justified: CheckpointKey, finalized: CheckpointKey,
+                     current_epoch: int) -> np.ndarray:
+        """Each node's ``node_is_viable_for_head``: its voting source is the
+        store's justified epoch, or was pulled up to it, or is within two
+        epochs; it descends from the finalized block (one forward sweep:
+        parents precede children); its payload is not invalid."""
+        n = self.n_nodes
+        je = self.justified_epoch[:n]
+        uje = self.unrealized_justified_epoch[:n]
+        ok_j = ((justified.epoch == 0) | (je == justified.epoch) | (uje >= justified.epoch)
+                | (je + 2 >= current_epoch))
+        if finalized.epoch == 0 or finalized.root not in self.indices:
+            ok_f = np.ones(n, bool)
+        else:
+            fin = self.indices[finalized.root]
+            ok_f = np.zeros(n, bool)
+            ok_f[fin] = True
+            parents = self.parents[:n]
+            for i in range(fin + 1, n):
+                p = parents[i]
+                if p != NONE and ok_f[p]:
+                    ok_f[i] = True
+        return ok_j & ok_f & (self.execution_status[:n] != EXEC_INVALID)
+
+    def apply_score_changes(self, deltas: np.ndarray, justified: CheckpointKey,
+                            finalized: CheckpointKey, current_epoch: int) -> None:
+        """Add ``deltas`` (int64[n_nodes]) to the weights, carried from
+        child to parent in one reverse sweep, then rebuild the best child
+        and best descendant pointers in a second (ties to the larger
+        root)."""
+        n = self.n_nodes
+        if n == 0:
+            return
+        if deltas.shape[0] != n:
+            raise ProtoArrayError("delta length mismatch")
+        d = deltas.astype(np.int64, copy=True)
+        parents = self.parents[:n]
+        for i in range(n - 1, 0, -1):
+            if parents[i] != NONE:
+                d[parents[i]] += d[i]
+        self.weights[:n] += d
+        viable = self._viable_mask(justified, finalized, current_epoch)
+        weights = self.weights[:n]
+        best_child = np.full(n, NONE, np.int32)
+        best_descendant = np.full(n, NONE, np.int32)
+        for i in range(n - 1, -1, -1):
+            p = parents[i]
+            if p == NONE or (not viable[i] and best_descendant[i] == NONE):
+                continue
+            cur = best_child[p]
+            if cur == NONE:
+                take = True
+            elif weights[i] != weights[cur]:
+                take = weights[i] > weights[cur]
+            else:
+                take = self.roots[i] > self.roots[cur]
+            if take:
+                best_child[p] = i
+                bd = best_descendant[i]
+                best_descendant[p] = bd if bd != NONE else (i if viable[i] else NONE)
+        own = (best_descendant == NONE) & viable
+        best_descendant[own] = np.nonzero(own)[0]
+        self.best_child[:n] = best_child
+        self.best_descendant[:n] = best_descendant
+        self._viable = viable
+
+    def find_head(self, justified_root: bytes) -> bytes:
+        """The best descendant of the justified node (the node itself when
+        it has none, or when that descendant is not viable)."""
+        if justified_root not in self.indices:
+            raise ProtoArrayError(f"unknown justified root {justified_root.hex()[:16]}")
+        start = self.indices[justified_root]
+        bd = self.best_descendant[start]
+        head = bd if bd != NONE else start
+        viable = getattr(self, "_viable", None)
+        if viable is not None and head < viable.shape[0] and not viable[head]:
+            head = start
+        return self.roots[head]
 
     def get_ancestor(self, root: bytes, slot: int) -> bytes | None:
         """The block of ``root``'s chain at or below ``slot``."""

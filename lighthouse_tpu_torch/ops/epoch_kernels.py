@@ -204,7 +204,11 @@ def fused_epoch_pass(eff_incr, balances, scores, prev_part, slashed, activation,
         return fused_epoch_pass_plain(eff_incr, balances, scores, prev_part, slashed, activation,
                                       exit_epoch, withdrawable, reward_t, penalty_t, slash_t,
                                       params)
-    outs = tuple(torch.empty(n, dtype=torch.int64, device=dev) for _ in range(3))
+    # the outputs start at the inputs' lane parity, so that a view into the
+    # columns (a mesh shard) still runs in aligned pairs
+    at = (balances.data_ptr() // 8) % 2
+    outs = tuple(torch.empty(n + 1, dtype=torch.int64, device=dev)[at:at + n]
+                 for _ in range(3))
     if n:
         ins = (reward_t, penalty_t, slash_t, params, eff_incr, balances, scores, prev_part,
                slashed, activation, exit_epoch, withdrawable) + outs

@@ -37,6 +37,7 @@ from lighthouse_tpu_torch.types import (
     Checkpoint,
     Eth1Data,
     Fork,
+    SignedBeaconBlockHeader,
     Validators,
     make_types,
 )
@@ -802,13 +803,13 @@ class BlockProducer:
             block_hash=hashlib.sha256(parent_hash + slot.to_bytes(8, "little")).digest(),
             withdrawals=get_expected_withdrawals(pre, spec))
 
-    def produce_block(self, slot: int | None = None, attestations=None):
+    def produce_block(self, slot: int | None = None, attestations=None, blob_commitments=()):
         """A signed block at ``slot`` (default: the next slot) carrying
         ``attestations`` (default: every committee of the two slots before
-        it), the full sync aggregate, the randao reveal and the proposer's
-        signature.  Returns ``(signed_block, pre, post)``: the producer's
-        state advanced to the slot, and after the block (the producer's
-        state from now on)."""
+        it), the full sync aggregate, the randao reveal, ``blob_commitments``
+        and the proposer's signature.  Returns ``(signed_block, pre,
+        post)``: the producer's state advanced to the slot, and after the
+        block (the producer's state from now on)."""
         from lighthouse_tpu_torch.state_transition import misc
         from lighthouse_tpu_torch.state_transition.block_processing import (
             SignatureStrategy,
@@ -834,7 +835,8 @@ class BlockProducer:
                                      spec.domain_randao, epoch),
             eth1_data=pre.eth1_data, graffiti=b"lighthouse-tpu".ljust(32, b"\x00"),
             attestations=list(attestations), sync_aggregate=self._sync_aggregate(pre, target),
-            execution_payload=self._execution_payload(pre, target))
+            execution_payload=self._execution_payload(pre, target),
+            blob_kzg_commitments=[bytes(c) for c in blob_commitments])
         block = t.BeaconBlockDeneb(slot=target, proposer_index=proposer,
                                    parent_root=pre.latest_block_header.hash_tree_root("cpu"),
                                    state_root=b"\x00" * 32, body=body)
@@ -849,6 +851,11 @@ class BlockProducer:
         return t.SignedBeaconBlockDeneb(message=block, signature=sig), pre, post
 
 
+    def make_blob_sidecars(self, signed_block, blobs, proofs) -> list:
+        """The ``BlobSidecar`` of each blob of a produced block: its header
+        carries the block's signature (the header's root is the block's)."""
+        return make_blob_sidecars(self.t, self.spec, signed_block, blobs, proofs, self.device)
+
     def resign(self, block):
         """The block signed by the validator it names as proposer (tampered
         blocks whose only fault is inside)."""
@@ -856,6 +863,27 @@ class BlockProducer:
         sig = self._sign(self.state, self.sk(int(block.proposer_index)),
                          block.hash_tree_root(self.device), self.spec.domain_beacon_proposer, epoch)
         return self.t.SignedBeaconBlockDeneb(message=block, signature=sig)
+
+
+def make_blob_sidecars(t, spec, signed_block, blobs, proofs, device=None) -> list:
+    """``BlobSidecar`` i for each (blob, proof) of ``signed_block``, with
+    the block's header and signature and commitment i's inclusion proof
+    (``lighthouse_tpu/testing.py:245``)."""
+    from lighthouse_tpu_torch.chain.blob_verification import compute_kzg_inclusion_proof
+
+    block = signed_block.message
+    body = block.body
+    header = SignedBeaconBlockHeader(
+        message=BeaconBlockHeader(slot=int(block.slot), proposer_index=int(block.proposer_index),
+                                  parent_root=bytes(block.parent_root),
+                                  state_root=bytes(block.state_root),
+                                  body_root=body.hash_tree_root(device)),
+        signature=bytes(signed_block.signature))
+    return [t.BlobSidecar(index=i, blob=blob, kzg_commitment=bytes(body.blob_kzg_commitments[i]),
+                          kzg_proof=proof, signed_block_header=header,
+                          kzg_commitment_inclusion_proof=compute_kzg_inclusion_proof(
+                              body, i, spec, device))
+            for i, (blob, proof) in enumerate(zip(blobs, proofs))]
 
 
 def tampered_blocks(cell: dict) -> dict:
@@ -948,3 +976,33 @@ def block_cell(n_validators: int = 1 << 20, seed: int = 12, n_blocks: int = 2,
     return dict(state=state, spec=spec, s0=s0, blocks=blocks, pre_states=pre_states,
                 post_roots=post_roots, anchor_root=anchor_root, keygen_s=keygen_s,
                 producer=producer)
+
+
+def blob_block_cell(cell: dict, settings, n_blobs: int = 6, seed: int = 13) -> dict:
+    """A block that carries blobs on ``block_cell``'s chain: the block after
+    the cell's last (the cell's producer moves on to it), full as the
+    cell's blocks are, with ``n_blobs`` blobs of ``settings.width`` field
+    elements (``kzg_blob``), their commitments and proofs on ``settings``
+    and its sidecars.  At the mainnet preset and 6 blobs of 4096 that is a
+    full Deneb block as most gossip blocks are since Deneb.
+
+    Returns a dict: ``block``, ``pre``, ``post_root``, ``blobs``,
+    ``commitments``, ``proofs``, ``sidecars``, and ``kzg_s``, the host
+    seconds of the commitments and proofs."""
+    import time
+
+    from lighthouse_tpu_torch.crypto import kzg
+
+    producer = cell["producer"]
+    device = producer.device
+    rng = np.random.default_rng(seed)
+    blobs = [kzg_blob(settings.width, rng) for _ in range(n_blobs)]
+    t0 = time.perf_counter()
+    commitments = [kzg.blob_to_kzg_commitment(b, settings, device) for b in blobs]
+    proofs = [kzg.compute_blob_kzg_proof(b, c, settings, device)
+              for b, c in zip(blobs, commitments)]
+    kzg_s = time.perf_counter() - t0
+    signed, pre, post = producer.produce_block(blob_commitments=commitments)
+    return dict(block=signed, pre=pre, post_root=bytes(signed.message.state_root), blobs=blobs,
+                commitments=commitments, proofs=proofs,
+                sidecars=producer.make_blob_sidecars(signed, blobs, proofs), kzg_s=kzg_s)

@@ -2,7 +2,7 @@
 operations, and its gossip attestations, parameterized by preset.
 
 Port of the Deneb slice of ``lighthouse_tpu/types/containers.py``
-(:79-148 and ``make_types`` :226-700); other forks' blocks are not ported
+(:79-148 and ``make_types`` :226-700, ``BlobSidecar`` :634 among them); other forks' blocks are not ported
 (``beacon_block_class`` and its kin raise ``NotImplementedError``).  Field
 orders follow the consensus spec exactly: the state root depends on them.
 Big state columns use the columnar numpy types of ``types.registry``.
@@ -277,6 +277,18 @@ def make_types(preset: Preset) -> SimpleNamespace:
         ("signature", ssz.Bytes96),
     ])
 
+    # the commitment's branch: the body's 16 field roots (depth 4), the
+    # list's length mix-in (1) and the commitments' chunk tree
+    inclusion_depth = 4 + 1 + max(P.max_blob_commitments_per_block - 1, 1).bit_length()
+    BlobSidecar = _container("BlobSidecar", [
+        ("index", ssz.uint64),
+        ("blob", ssz.ByteVector(P.field_elements_per_blob * 32)),
+        ("kzg_commitment", ssz.Bytes48),
+        ("kzg_proof", ssz.Bytes48),
+        ("signed_block_header", SignedBeaconBlockHeader),
+        ("kzg_commitment_inclusion_proof", ssz.Vector(ssz.Bytes32, inclusion_depth)),
+    ])
+
     def _deneb(kind: str, cls):
         def by_fork(fork: str):
             if fork != "deneb":
@@ -299,6 +311,7 @@ def make_types(preset: Preset) -> SimpleNamespace:
         BeaconBlockBodyDeneb=BeaconBlockBodyDeneb,
         BeaconBlockDeneb=BeaconBlockDeneb,
         BeaconStateDeneb=BeaconStateDeneb,
+        BlobSidecar=BlobSidecar,
         ExecutionPayloadDeneb=ExecutionPayloadDeneb,
         ExecutionPayloadHeaderDeneb=ExecutionPayloadHeaderDeneb,
         IndexedAttestation=IndexedAttestation,

@@ -49,6 +49,9 @@ class Preset:
     max_bytes_per_transaction: int = 2**30
     max_transactions_per_payload: int = 2**20
     max_blob_commitments_per_block: int = 4096
+    # blobs (both presets)
+    field_elements_per_blob: int = 4096
+    max_blobs_per_block: int = 6
     max_withdrawals_per_payload: int = 16
     max_validators_per_withdrawals_sweep: int = 16384
 
@@ -147,6 +150,8 @@ class ChainSpec:
     electra_fork_epoch: int = FAR_FUTURE_EPOCH
 
     # domains (4-byte little-endian tags)
+    # fork choice
+    proposer_score_boost: int = 40
     domain_beacon_proposer: int = 0
     domain_beacon_attester: int = 1
     domain_randao: int = 2

@@ -121,11 +121,16 @@ def test_chain_imports_blocks_as_the_jax_chain_does():
         assert pr == jr and isinstance(pr, bytes)
         assert _port_node(p, pr) == _jax_node(j, jr)
         assert p.state_for_block(pr).hash_tree_root(CPU) == bytes(b.message.state_root)
+        assert p.head_root == j.head_root == pr
     fc_j, fc_p = j.fork_choice, p.fork_choice
     for name in ("justified", "finalized"):
         mine, theirs = getattr(fc_p, name), getattr(fc_j, name)
         assert (mine.epoch, mine.root) == (theirs.epoch, theirs.root), name
     assert fc_p.finalized.epoch > 0
+    # balance snapshots pruned at finalization to the roots the JAX chain
+    # keeps (the anchor's is gone)
+    assert set(fc_p._balance_snapshots) == set(fc_j._balance_snapshots)
+    assert p.anchor_root not in fc_p._balance_snapshots
     # votes by block root (the JAX proto-array prunes below the finalized
     # block, so its node indices shift)
     node, epoch, _queued = fc_p.votes()
@@ -164,10 +169,15 @@ def test_repeat_proposal_and_blob_blocks():
     jr, pr = _import_both(j, p, first)
     assert pr == jr and isinstance(pr, bytes)
     assert _import_both(j, p, other) == ["repeat_proposal", "repeat_proposal"]
-    blob_block = _port(other)
-    blob_block.message.body.blob_kzg_commitments = [b"\xc0" + b"\x00" * 47]
-    with pytest.raises(NotImplementedError, match="blob_verification"):
-        p.process_block(blob_block)
+    # a block with a blob commitment waits for its sidecar in both chains
+    from lighthouse_tpu.state_transition import SignatureStrategy, state_transition
+
+    state_transition(h.state, h.spec, first, SignatureStrategy.NO_VERIFICATION)
+    blob_block = h.produce_block(attestations=[], blob_commitments=[b"\xc0" + b"\x00" * 47])
+    assert _import_both(j, p, blob_block) == [None, None]
+    root = blob_block.message.hash_tree_root()
+    assert p.da_checker.missing_blob_indices(root) == j.da_checker.missing_blob_indices(root) == [0]
+    assert not p.block_exists(root)
 
 
 def test_real_signature_import_and_a_bad_batch():
@@ -192,3 +202,36 @@ def test_real_signature_import_and_a_bad_batch():
     assert pr == jr and isinstance(pr, bytes)
     assert _port_node(p, pr) == _jax_node(j, jr)
     assert _import_both(j, p, bad, source="rpc") == ["batch_signature_invalid"] * 2
+
+
+def test_heads_on_competing_branches_follow_the_jax_chain():
+    """Two children of genesis (slots 1 and 2), then blocks on the first
+    branch whose attestations vote for it: after each import the port's
+    head (``get_head``: vote deltas, the justified balances, proposer
+    boost) is the JAX chain's, and so are the nodes' weights' winners."""
+    from lighthouse_tpu.state_transition import SignatureStrategy, state_transition
+
+    h = Harness(64, fork="deneb", real_crypto=False)
+    other = copy.deepcopy(h)
+    j, p = _chains(h, verify=False)
+    first = h.produce_block(slot=1, attestations=[])
+    second = other.produce_block(slot=2, attestations=[])
+    heads = []
+    for b in (first, second):
+        jr, pr = _import_both(j, p, b)
+        assert pr == jr and isinstance(pr, bytes)
+        heads.append((j.head_root, p.head_root))
+    state_transition(h.state, h.spec, first, SignatureStrategy.NO_VERIFICATION)
+    for slot in (3, 4):
+        atts = [h.attest(int(h.state.slot), ci) for ci in range(2)]
+        blk = h.produce_block(slot=slot, attestations=atts)
+        state_transition(h.state, h.spec, blk, SignatureStrategy.NO_VERIFICATION)
+        jr, pr = _import_both(j, p, blk)
+        assert pr == jr and isinstance(pr, bytes)
+        heads.append((j.head_root, p.head_root))
+    assert all(jh == ph for jh, ph in heads)
+    assert heads[1][0] == second.message.hash_tree_root()     # the boosted newer branch
+    assert heads[-1][0] == blk.message.hash_tree_root()        # votes moved it back
+    for c in (j, p):
+        c.slot_clock.set_slot(8)
+    assert p.recompute_head() == j.recompute_head()

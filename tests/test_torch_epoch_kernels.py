@@ -46,10 +46,40 @@ void h_epoch(long n, int k, const int64_t* reward, const int64_t* penalty, const
              const int64_t* scores, const uint8_t* prev_part, const uint8_t* slashed,
              const int64_t* activation, const int64_t* exit_epoch, const int64_t* withdrawable,
              int64_t* sc, int64_t* bal, int64_t* eff) {
+    const epoch::EpochCols c{eff_incr, balances, scores, prev_part, slashed, activation,
+                             exit_epoch, withdrawable, sc, bal, eff};
+    const epoch::EpochTables t{reward, penalty, slash, params};
     for (long i = 0; i < n; i++)
-        epoch::lane_fused_epoch_pass(i, k, reward, penalty, slash, params, eff_incr, balances,
-                                     scores, prev_part, slashed, activation, exit_epoch,
-                                     withdrawable, sc, bal, eff);
+        epoch::lane_fused_epoch_pass(i, k, t, c);
+}
+// k_fused_epoch_pass's grid of blocks x threads; -1 if a pair's load or
+// store is not aligned to its width
+int h_epoch_kernel(long n, int k, const int64_t* reward, const int64_t* penalty,
+                   const int64_t* slash, const int64_t* params, const int32_t* eff_incr,
+                   const int64_t* balances, const int64_t* scores, const uint8_t* prev_part,
+                   const uint8_t* slashed, const int64_t* activation, const int64_t* exit_epoch,
+                   const int64_t* withdrawable, int64_t* sc, int64_t* bal, int64_t* eff,
+                   long blocks, int threads) {
+    const epoch::EpochCols c{eff_incr, balances, scores, prev_part, slashed, activation,
+                             exit_epoch, withdrawable, sc, bal, eff};
+    return epoch::host_fused_epoch_pass(n, k, reward, penalty, slash, params, c, blocks,
+                                        threads);
+}
+// (head, pairs) of epoch_split, as head * 10^6 + pairs
+long long h_epoch_split(long n, const void* const* cols) {
+    const epoch::EpochCols c{static_cast<const int32_t*>(cols[0]),
+                             static_cast<const int64_t*>(cols[1]),
+                             static_cast<const int64_t*>(cols[2]),
+                             static_cast<const uint8_t*>(cols[3]),
+                             static_cast<const uint8_t*>(cols[4]),
+                             static_cast<const int64_t*>(cols[5]),
+                             static_cast<const int64_t*>(cols[6]),
+                             static_cast<const int64_t*>(cols[7]),
+                             static_cast<int64_t*>(const_cast<void*>(cols[8])),
+                             static_cast<int64_t*>(const_cast<void*>(cols[9])),
+                             static_cast<int64_t*>(const_cast<void*>(cols[10]))};
+    const epoch::EpochSplit s = epoch::epoch_split(n, c);
+    return s.head * 1000000 + s.pairs;
 }
 int h_shuffle(long count, int rounds, long row_bytes, const int32_t* pivots,
               const uint8_t* src, int32_t* out) {
@@ -118,6 +148,7 @@ def lanes(tmp_path_factory):
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     lib.h_shuffle_capacity.restype = ctypes.c_longlong
+    lib.h_epoch_split.restype = ctypes.c_longlong
     return lib
 
 
@@ -231,6 +262,63 @@ def test_epoch_lane_matches_plain(lanes, n, leak, rewards):
                   *(_ptr(cols[c]) for c in COLUMNS), *(_ptr(g) for g in got))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def _at_offset(a: np.ndarray, lanes: int) -> np.ndarray:
+    """A copy of ``a`` starting ``lanes`` elements past a 128-byte boundary."""
+    raw = np.zeros(a.nbytes + (lanes + 64) * a.itemsize + 128, np.uint8)
+    start = (-raw.ctypes.data) % 128 + lanes * a.itemsize
+    out = raw[start:start + a.nbytes].view(a.dtype)
+    out[:] = a
+    return out
+
+
+GRID_COUNTS = range(38)
+GRID_OFFSETS = range(16)
+GRIDS = [(2, 4), (1, 1), (3, 32)]
+
+
+@pytest.mark.parametrize("blocks,threads", GRIDS)
+def test_epoch_kernel_grid_matches_plain_and_jax(jax_ek, lanes, blocks, threads):
+    """Row 17's grid on the host (csrc/epoch.cuh host_fused_epoch_pass, a
+    grid of blocks x threads): counts 0-37 at column offsets 0-15 lanes
+    past a 128-byte boundary (a mesh shard's view; the three grids share
+    the offsets out, each takes every third), outputs at the inputs'
+    lane parity as the wrapper places them, against the plain version and
+    the JAX ``_fused_epoch_pass`` on the same lanes; the split takes pairs
+    from the columns' first even-aligned lane, and columns whose offsets
+    disagree in parity run every lane alone."""
+    from lighthouse_tpu_torch.state_transition.epoch_device import COLUMNS
+
+    total = max(GRID_OFFSETS) + max(GRID_COUNTS) + 1
+    cols, tables, params = _epoch_inputs(total, seed=71 + threads, leak=blocks == 3)
+    want = [t.numpy() for t in ek.fused_epoch_pass_plain(*_tensors(cols, tables, params))]
+    jcols = dict(cols, slashed=cols["slashed"].astype(bool))
+    jwant = jax_ek.epoch_pass_device(jcols, tables, params[:jax_ek.N_PARAMS], apply_eb=True)
+    for w, j in zip(want, jwant):
+        np.testing.assert_array_equal(w, j)
+    tabs = [_ptr(tables["reward"]), _ptr(tables["penalty"]), _ptr(tables["slash"]), _ptr(params)]
+    for off in GRID_OFFSETS[GRIDS.index((blocks, threads))::len(GRIDS)]:
+        for n in GRID_COUNTS:
+            ins = [_at_offset(cols[c][off:off + n], off) for c in COLUMNS]
+            for out_off, skew in ((off, False), (off + 1, False), (off, True)):
+                if skew:        # one input column at the other parity
+                    ins = list(ins)
+                    ins[4] = _at_offset(cols["slashed"][off:off + n], off + 1)
+                outs = [_at_offset(np.full(n, -7, np.int64), out_off) for _ in range(3)]
+                ptrs = [_ptr(a) for a in ins + outs]
+                split = lanes.h_epoch_split(ctypes.c_long(n),
+                                            (ctypes.c_void_p * 11)(*[p.value for p in ptrs]))
+                if out_off % 2 != off % 2 or skew:
+                    assert split == n * 1000000
+                else:
+                    head = min(off % 2, n)
+                    assert split == head * 1000000 + (n - head) // 2
+                rc = lanes.h_epoch_kernel(ctypes.c_long(n), ctypes.c_int(K), *tabs, *ptrs,
+                                          ctypes.c_long(blocks), ctypes.c_int(threads))
+                assert rc == 0, f"a pair was not aligned at offset {off}, count {n}"
+                for g, w in zip(outs, want):
+                    np.testing.assert_array_equal(g, w[off:off + n])
 
 
 # --------------------------------------------------------------------------
@@ -435,11 +523,18 @@ def test_kernels_match_plain_versions_on_the_card():
     dev = torch.device("cuda")
     ek.reset_launches()
     tsha.reset_launches()
+    epoch_cases = 0
     for n, leak, rewards in ((777, False, True), (4099, True, True), (300, False, False)):
         cols, tables, params = _epoch_inputs(n, seed=n, leak=leak, rewards=rewards)
         args = _tensors(cols, tables, params, dev)
-        for g, w in zip(ek.fused_epoch_pass(*args), ek.fused_epoch_pass_plain(*args)):
-            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        # the whole columns, short counts, and views 1-3 lanes in (row 17's
+        # scalar head and tail beside its aligned pairs)
+        for case in ([x for x in args[:8]], *([x[:m] for x in args[:8]] for m in (1, 2, 3)),
+                     *([x[o:] for x in args[:8]] for o in (1, 2, 3))):
+            got = ek.fused_epoch_pass(*case, *args[8:])
+            for g, w in zip(got, ek.fused_epoch_pass_plain(*case, *args[8:])):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+            epoch_cases += 1
     # rows that are not a multiple of the cluster nor of 16 bytes, up to a
     # row larger than one block's shared memory (2^21 positions)
     shuffles = ((1000, 90), (4099, 10), (256, 90), (257, 90), ((1 << 16) + 3, 90),
@@ -454,5 +549,5 @@ def test_kernels_match_plain_versions_on_the_card():
     state, block = (tsha.to_tensor(_words(4099, w, seed=w), dev) for w in (8, 16))
     got = tsha.sha256_block_device(state, block)
     torch.testing.assert_close(got, tsha.sha256_block_plain(state, block), rtol=0, atol=0)
-    assert [k.launches for k in ek.KERNELS] == [3, len(shuffles)]
+    assert [k.launches for k in ek.KERNELS] == [epoch_cases, len(shuffles)]
     assert tsha.sha256_block_device.launches == 1
