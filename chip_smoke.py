@@ -198,8 +198,8 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     with its time, bound and plain time; one pair over 4 shards; a chunked
     sharded multi-pairing against a monolithic one.  Then the main path,
     counted: ``verify_signature_sets(backend="sharded")`` on the block
-    batch (the default mesh) and p50 of 3 verifies over meshes of 1 and 4
-    with their stage seconds, the full-width merkle dry run (the
+    batch (the default mesh: every card, so 1 here) and one timed verify
+    over a mesh of 4 with its stage seconds, the full-width merkle dry run (the
     2^20-validator epoch state's validator roots over 4) and
     ``dryrun_multichip(4)``.  Afterwards: the ``cuda`` backend's verdict,
     a wrong-message, a swapped-signature, an empty and a no-pubkey batch
@@ -210,6 +210,34 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
     single-device pass and ``gather_fold_sharded`` over 4 at phase 12's
     full shape against the single-device fold, both tolerance 0; peak
     device memory under 8 GB.
+
+17. PeerDAS cells and cell proofs (``crypto/das.py``) at width 4096 on phase
+    11's ``KzgSettings.dev(4096)`` with its monomial points, counted: a
+    proposer's ``compute_cells_and_kzg_proofs`` of a block's 6 blobs (row
+    13 over chunks of 131,072 lanes in 32 segments), a node's sampling
+    round (8 columns x 6 blobs = 48 cells) and a supernode's batch (768
+    cells) through ``verify_cell_kzg_proof_batch`` (row 14 with
+    tau^64.G2), and ``recover_all_cells`` from the even half of a blob's
+    cells; rows 13 and 14's launches and calls over that run.  Afterwards:
+    every cell == ``compute_cells``, every proof == [q_c(tau)]G1 (p(tau) by
+    the barycentric evaluation, I_c(tau) on the coset, one native scalar
+    multiplication a cell), the recovery == the cells and 65 cells with one
+    corrupted raise the JAX package's message; both batches tampered three
+    ways (an element + 1, two proofs swapped, a cell id moved) read False;
+    a 7-cell batch takes the per-cell check (row 10) both ways; row 13 at
+    the cell-proof layout (two cells of a chunk) and row 14 at the 48-cell
+    batch == their plain versions (tolerance 0), with times and bounds (and
+    a whole chunk's and the 768-cell batch's); then ``das_cells_proofs_ms``
+    (one blob), ``das_verify_48_ms``, ``das_verify_768_ms`` and
+    ``das_recover_ms``, each a p50 of 3 with its stages.
+18. The BLS supervisor on the card (``crypto/bls/api.py``): after each of
+    phases 1-17 the run has already failed if the supervisor caught a fault
+    or recovered a batch.  Here ``raise``, ``corrupt`` (audit 1.0) and
+    ``hang`` (a 4 s stall past a 2 s ``LHGPU_WATCHDOG_S``) are injected at
+    the ``cuda`` backend's entry into a batch of 8 microbench sets, on the
+    ladder ``cuda,reference``: each gives the reference verdict with
+    exactly one recovery and an open breaker; with the plan cleared a clean
+    batch counts none.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; the one before that the kernel table.
@@ -264,7 +292,7 @@ def smi(query: str) -> str:
 
 
 def main() -> int:
-    t_start = time.perf_counter()
+    t_start = _PHASE_MARK[0] = time.perf_counter()
     CALLS.clear()
     import torch
 
@@ -305,6 +333,8 @@ def main() -> int:
     for line in native.build_log("sha256").splitlines():
         if "ptxas" in line:
             log(f"  {line.strip()}")
+
+    no_recoveries("phase 1")
 
     # -- 2. kernels against their plain versions -------------------------
     def cuda_ms(fn, reps: int) -> float:
@@ -378,6 +408,8 @@ def main() -> int:
         f"{ {f'2^{k}': tuple(sha.fold_plan(1 << k).values()) for k in (12, 16, 17, 18, 19, 20)} }")
     del pairs, leaves, got, want
 
+    no_recoveries("phase 2")
+
     # -- 3. small state: kernels against hashlib ---------------------------
     small, _ = build_state(N_SMALL, SEED, "mainnet")
     sha.reset_launches()
@@ -393,6 +425,8 @@ def main() -> int:
     log(f"state root, {N_SMALL} validators: kernels == hashlib {root_host.hex()} "
         f"(launches {small_launches})")
     del small
+
+    no_recoveries("phase 3")
 
     # -- 4. main path at 2^20 validators -----------------------------------
     t0 = time.perf_counter()
@@ -494,19 +528,33 @@ def main() -> int:
         f"{ {k: round(v, 2) for k, v in sorted(host.items(), key=lambda kv: -kv[1])} }")
 
     del state, replay
+    no_recoveries("phase 4")
     block_sets = bls_phases(torch, np, native, dev, table, build_s, max_mhz)
+    no_recoveries("phase 7")
     shard_inputs = epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s)
+    no_recoveries("phase 9")
     kzg_batch = kzg_phases(torch, np, native, dev, table, build_s, max_mhz)
+    no_recoveries("phase 11")
     shard_inputs["fold"] = ingest_phases(torch, np, dev, table, max_mhz)
+    no_recoveries("phase 13")
     final_exp_phase(torch, np, native, dev, table, max_mhz, block_sets, kzg_batch)
+    no_recoveries("phase 14")
     kzg_settings = kzg_batch[3]
     del kzg_batch
     block_phase(torch, np, dev, table, kzg_settings)
-    del kzg_settings
+    no_recoveries("phase 15")
     sharded_phase(torch, np, dev, table, max_mhz, int32_ops_per_s, block_sets, shard_inputs)
     del block_sets, shard_inputs
+    no_recoveries("phase 16")
+    das_phase(torch, np, dev, table, max_mhz, kzg_settings)
+    del kzg_settings
+    no_recoveries("phase 17")
+    log("supervisor: no fault caught and no batch recovered over phases 1-17")
+    supervisor_phase(torch)
+    phase_done("phase 18")
     log(f"calls on the main paths (the table's launches count a tree kernel's levels): "
         f"{ {k: CALLS[k] for k in table} }")
+    log(json.dumps({"phase_s": PHASE_S}))
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from start to the kernel table")
 
     print(json.dumps({"kernels": list(table.values())}))
@@ -561,6 +609,8 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
         if got.shape != want.shape:
             raise SystemExit(f"shape {list(got.shape)} != {list(want.shape)}")
         return int((bi.u64(got.to(torch.int32)) - bi.u64(want.to(torch.int32))).abs().max())
+
+    no_recoveries("phase 5")
 
     # -- 6. BLS kernels against their plain versions ------------------------
     ptxas_report(native, "bls12_381", BLS_KERNELS)
@@ -696,6 +746,8 @@ def bls_phases(torch, np, native, dev, table, build_s, max_mhz) -> list:
         f"{[w for w, _ in edges]}; fq12_mul with a factor of one; g2_subgroup at 3 lanes; "
         f"blinded_fold at {mfold[0].shape[0]} lanes in {n_micro} segments "
         f"(plan {msm.blinded_fold_plan(mfold[0].shape[0], n_micro)})")
+
+    no_recoveries("phase 6")
 
     # -- 7. the BLS main path ------------------------------------------------
     def verify(sets, **kw):
@@ -944,11 +996,25 @@ def device_busy(trace_path: str) -> tuple[float, int, dict]:
 
 def host_top5(fn) -> list:
     """The five functions with the most own time in one run of ``fn``
-    under cProfile, as (name, ms)."""
+    under cProfile, as (name, ms).  cProfile sees the calling thread only,
+    so the BLS supervisor's watchdog (``LHGPU_WATCHDOG_S``) is off for the
+    run: its backends then run on this thread."""
+    from lighthouse_tpu_torch.crypto.bls import api
+
+    saved = os.environ.get("LHGPU_WATCHDOG_S")
+    os.environ["LHGPU_WATCHDOG_S"] = "0"
+    api.reset_supervisor()
     prof_py = cProfile.Profile()
-    prof_py.enable()
-    fn()
-    prof_py.disable()
+    try:
+        prof_py.enable()
+        fn()
+        prof_py.disable()
+    finally:
+        if saved is None:
+            os.environ.pop("LHGPU_WATCHDOG_S")
+        else:
+            os.environ["LHGPU_WATCHDOG_S"] = saved
+        api.reset_supervisor()
     stats = pstats.Stats(prof_py).stats
     own = sorted(((tt * 1e3, f"{func} ({fname.rsplit('/', 1)[-1]}:{line})")
                   for (fname, line, func), (_cc, _nc, tt, _ct, _callers) in stats.items()),
@@ -1108,6 +1174,8 @@ def epoch_phase(torch, np, native, dev, table, build_s, int32_ops_per_s) -> dict
     shard_inputs = {"epoch_args": (columns, tables, params),
                     "registry_leaves": ValidatorRegistryType(N_FULL).batch_roots(
                         state.validators, dev)}
+
+    no_recoveries("phase 8")
 
     # -- 9. the main path at both fills: the stress fill whose shapes phase
     # 8 checked, then a mainnet-shaped registry, what a node crosses
@@ -1439,6 +1507,8 @@ def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> tuple:
     log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
 
+    no_recoveries("phase 10")
+
     # -- 11. the KZG main path -------------------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1555,6 +1625,8 @@ def kzg_phases(torch, np, native, dev, table, build_s, max_mhz) -> tuple:
 FLOOD_SEED = 20240316
 FLOOD_VALIDATORS = 1 << 16       # cut from 2^20: the pubkey table's host build (PERF.md §4)
 FLOOD_ATTS = 1 << 15             # BASELINE config 3: 32k single-bit attestations a slot
+FLOOD_REF_BATCHES = 4            # batches of the reference-backend flood (it verifies on the
+                                 # host: a cut of depth for the time limit)
 FULL_TABLE_ROWS = 1 << 20        # config 3's registry, for row 11 alone
 FULL_GROUPS = 64                 # 64 committees of 512 in config 3's full-size batch
 TAMPERED_ROWS = 16
@@ -1736,6 +1808,8 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> dict:
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
 
+    no_recoveries("phase 12")
+
     # -- 13. the main paths ------------------------------------------------------
     path_kernels = (*bb.KERNELS, msm.gather_fold_device, bb.g1_subgroup_device,
                     ek.shuffle_rounds, sha.sha256_block_device)
@@ -1748,12 +1822,12 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> dict:
         c.slot_clock.set_slot(slot)
         return c
 
-    def flood(c):
+    def flood(c, batches):
         ci.reset_stages()
         verified, rejects = 0, []
         torch.cuda.synchronize()
         t = time.perf_counter()
-        for b in cell["batches"]:
+        for b in batches:
             r = ci.process_wire_batch(c, [(blob, False) for blob in b])
             verified += r.verified
             rejects += r.rejects
@@ -1780,36 +1854,46 @@ def ingest_phases(torch, np, dev, table, max_mhz) -> dict:
         f"membership of every key on the host, then the upload) -> at 2^20 validators about "
         f"{table_s * (1 << 20) / FLOOD_VALIDATORS:.0f} s")
     # (b) BLS backend cuda: the node's default on the card (no pre-merge)
-    verified_b, rejects_b, secs_b, stages_b = flood(chain_b)
+    verified_b, rejects_b, secs_b, stages_b = flood(chain_b, cell["batches"])
     launches_b = launches()
     idle = [k for k in ("pipeline_device", "g2_subgroup_device", "fq12_mul_device",
                         "shuffle_rounds", "sha256_block_device") if launches_b[k] == 0]
     if idle:
         raise SystemExit(f"kernels of the cuda-backend flood never launched: {idle}")
-    # (c) BLS backend reference, the plane's device rung: row 11 in each batch
+    # (c) BLS backend reference, the plane's device rung: row 11 in each of the
+    # first FLOOD_REF_BATCHES batches, held to a cuda-backend chain fed the same
+    ref_batches = cell["batches"][:FLOOD_REF_BATCHES]
+    ref_atts = sum(len(b) for b in ref_batches)
     chain_c = new_chain("reference")
     before_c, calls_before = launches(), msm.gather_fold_device.calls
-    verified_c, rejects_c, secs_c, stages_c = flood(chain_c)
+    verified_c, rejects_c, secs_c, stages_c = flood(chain_c, ref_batches)
     launches_c = {k: v - before_c[k] for k, v in launches().items()}
     CALLS["gather_fold"] = msm.gather_fold_device.calls - calls_before
-    if verified_b != FLOOD_ATTS or verified_c != FLOOD_ATTS or rejects_b or rejects_c:
-        raise SystemExit(f"the flood did not verify whole: cuda {verified_b} "
-                         f"(rejects {rejects_b[:5]}), reference {verified_c} "
-                         f"(rejects {rejects_c[:5]}) of {FLOOD_ATTS}")
-    if chain_view(chain_b) != chain_view(chain_c):
+    chain_d = new_chain("cuda")
+    verified_d, rejects_d, _, _ = flood(chain_d, ref_batches)
+    if verified_b != FLOOD_ATTS or verified_c != ref_atts or verified_d != ref_atts or \
+            rejects_b or rejects_c or rejects_d:
+        raise SystemExit(f"the flood did not verify whole: cuda {verified_b} of {FLOOD_ATTS} "
+                         f"(rejects {rejects_b[:5]}), reference {verified_c} and cuda "
+                         f"{verified_d} of the first {ref_atts} (rejects {rejects_c[:5]}, "
+                         f"{rejects_d[:5]})")
+    if chain_view(chain_d) != chain_view(chain_c):
         raise SystemExit("the two BLS backends left different pools, observed attesters or "
                          "fork-choice votes")
     if launches_c["gather_fold_device"] == 0 or plane.folds["device"] == 0:
         raise SystemExit(f"row 11 never launched in the reference-backend flood: "
                          f"{launches_c}, plane folds {plane.folds}")
-    for name, secs, stages in (("cuda", secs_b, stages_b), ("reference", secs_c, stages_c)):
-        log(json.dumps({"flood_atts_per_s": FLOOD_ATTS / secs, "flood_n": FLOOD_ATTS,
-                        "flood_verified": FLOOD_ATTS, "flood_batch_s": secs,
+    for name, n, secs, stages in (("cuda", FLOOD_ATTS, secs_b, stages_b),
+                                  ("reference", ref_atts, secs_c, stages_c)):
+        log(json.dumps({"flood_atts_per_s": n / secs, "flood_n": n,
+                        "flood_verified": n, "flood_batch_s": secs,
                         "flood_build_s": flood_build_s, "flood_platform": "cuda",
                         "bls_backend": name, "pubkey_table_build_s": table_s,
                         "stages_s": stages["seconds"], "stage_counts": stages["counts"]}))
-    log(f"both backends: {FLOOD_ATTS} verified, equal pools ({len(chain_b.naive_pool)} "
-        f"aggregates), observed attesters and votes; launches over the cuda flood "
+    log(f"cuda backend: {FLOOD_ATTS} verified in {len(cell['batches'])} batches; both backends "
+        f"over the first {FLOOD_REF_BATCHES}: {ref_atts} verified, equal pools "
+        f"({len(chain_c.naive_pool)} aggregates), observed attesters and votes; launches over "
+        f"the cuda flood "
         f"{launches_b}, over the reference flood {launches_c}; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes")
 
@@ -2414,8 +2498,9 @@ def blob_block_import(torch, dev, cell, first, second, settings) -> None:
 
 
 SHARD_COUNTS = (1, 2, 4)           # mesh sizes of phase 16 on the one card
-SHARD_TIMED_RUNS = 3               # sharded block verifies per mesh for the p50
+SHARD_TIMED_RUNS = {1: 3, 4: 3}    # timed sharded block verifies per mesh, for each p50
 SHARD_CHUNK = 64                   # the chunked sharded run's chunk size
+SHARD_TAMPERED_SETS = 16           # the sets of each tampered sharded batch
 
 
 def sharded_phase(torch, np, dev, table, max_mhz, int32_ops_per_s, block, inputs) -> None:
@@ -2432,6 +2517,7 @@ def sharded_phase(torch, np, dev, table, max_mhz, int32_ops_per_s, block, inputs
     from lighthouse_tpu_torch.parallel import bls_sharded as bs
     from lighthouse_tpu_torch.parallel import dryrun_worker as dw
     from lighthouse_tpu_torch.parallel import epoch_sharded as es
+    from lighthouse_tpu_torch.parallel import mesh as pm
     from lighthouse_tpu_torch.parallel import msm_sharded as ms
     from lighthouse_tpu_torch.state_transition import epoch_device
 
@@ -2534,10 +2620,11 @@ def sharded_phase(torch, np, dev, table, max_mhz, int32_ops_per_s, block, inputs
     runs = {}
     ledgers = {}
     api_ok = bls.verify_signature_sets(T.fresh(block), backend="sharded")
-    for n_dev in (1, 4):
+    default_mesh = len(pm.device_mesh())
+    for n_dev, n_runs in SHARD_TIMED_RUNS.items():
         ledgers[n_dev] = {}
         runs[n_dev] = [verify(T.fresh(block), [dev] * n_dev, ledgers[n_dev])
-                       for _ in range(SHARD_TIMED_RUNS)]
+                       for _ in range(n_runs)]
     leaves = inputs["registry_leaves"]
     full_root = dw.merkle_dryrun([dev] * 4, leaves)
     dry = dw.dryrun_multichip(4, dev)
@@ -2553,29 +2640,33 @@ def sharded_phase(torch, np, dev, table, max_mhz, int32_ops_per_s, block, inputs
     idle = [k for k, v in launched.items() if v == 0]
     if idle:
         raise SystemExit(f"kernels never launched on the sharded path: {idle}")
-    for n_dev in (1, 4):
+    for n_dev, n_runs in SHARD_TIMED_RUNS.items():
         p50 = statistics.median(t for _, t in runs[n_dev])
-        stages = {k: round(v / SHARD_TIMED_RUNS * 1e3, 2) for k, v in ledgers[n_dev].items()}
+        stages = {k: round(v / n_runs * 1e3, 2) for k, v in ledgers[n_dev].items()}
         log(f"sharded block batch, mesh of {n_dev} on one card: runs "
-            f"{[round(t, 1) for _, t in runs[n_dev]]} ms -> p50 {p50:.1f} ms; mean stages (ms) "
-            f"{stages}")
+            f"{[round(t, 1) for _, t in runs[n_dev]]} ms -> p50 of {n_runs} {p50:.1f} ms; mean "
+            f"stages (ms) {stages}")
     log(f"dry run over a mesh of 4: {dry['mesh']}, root {dry['root'][:16]}..., "
         f"{dry['seconds']:.2f} s; launches over the sharded path {launched}")
 
-    # checks after the counted run
+    # checks after the counted run; the tampered batches are the block batch's
+    # first SHARD_TAMPERED_SETS sets (the host prep of a whole batch costs
+    # seconds: a cut of depth for the time limit)
     cuda_ok = bls.verify_signature_sets(T.fresh(block), backend="cuda", device=dev)
-    swapped = T.fresh(block)
+    cut = block[:SHARD_TAMPERED_SETS]
+    swapped = T.fresh(cut)
     swapped[0].signature, swapped[1].signature = swapped[1].signature, swapped[0].signature
-    nokey = T.fresh(block)
+    nokey = T.fresh(cut)
     nokey[0] = api.SignatureSet(nokey[0].signature, [], nokey[0].message)
-    verdicts = {"wrong message": verify(T.with_wrong_message(T.fresh(block), 7), [dev] * 4)[0],
+    verdicts = {"wrong message": verify(T.with_wrong_message(T.fresh(cut), 7), [dev] * 4)[0],
                 "swapped signatures": verify(swapped, [dev] * 4)[0],
                 "empty batch": verify([], [dev] * 4)[0],
                 "a set with no pubkeys": verify(nokey, [dev] * 4)[0]}
     if not cuda_ok or any(verdicts.values()):
         raise SystemExit(f"sharded verdicts: cuda backend {cuda_ok}, tampered {verdicts}")
-    log(f"the block batch verifies on sharded (meshes 1, 4, and the api's default mesh) and "
-        f"on cuda; tampered and empty batches read False on sharded {verdicts}")
+    log(f"the block batch verifies on sharded (the api's default mesh of {default_mesh}, and 4) and "
+        f"on cuda; tampered batches of its first {SHARD_TAMPERED_SETS} sets and the empty batch "
+        f"read False on sharded {verdicts}")
 
     # -- 16c. row 20 against its plain version and hashlib ------------------------
     # (merkle_dryrun above held the full-width root to hashlib already)
@@ -2654,6 +2745,339 @@ def sharded_phase(torch, np, dev, table, max_mhz, int32_ops_per_s, block, inputs
         plain_ms=full20["plain_ms"], bound_ms=full20["bound_ms"], bound_by=full20["bound_by"],
         library_ms=None)
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+
+DAS_SEED = 20240320
+DAS_BLOBS = 6                      # a Deneb block's most blobs: a proposer's cells
+DAS_SAMPLE_COLUMNS = 8             # the columns a node samples each slot
+DAS_RUNS = 3                       # runs for each p50
+SUPERVISOR_SETS = 8                # phase 18's batch: every recovery re-verifies it on the host
+SUPERVISOR_WATCHDOG_S = 2.0
+SUPERVISOR_HANG_S = 4.0
+
+
+PHASE_S: dict[str, float] = {}     # wall seconds of each phase, in order
+_PHASE_MARK = [0.0]
+
+
+def phase_done(name: str) -> None:
+    """Record the wall time since the previous phase ended."""
+    now = time.perf_counter()
+    PHASE_S[name] = round(now - _PHASE_MARK[0], 1)
+    _PHASE_MARK[0] = now
+
+
+def no_recoveries(after: str) -> None:
+    """Record ``after``'s time, and fail the run when the BLS supervisor has
+    caught a fault or recovered a batch: on the main path a recovery would
+    hide a kernel's fault."""
+    from lighthouse_tpu_torch.crypto.bls import api
+
+    phase_done(after)
+    rec, flt = api.recoveries(), api.faults()
+    if rec or flt:
+        raise SystemExit(f"the supervisor recovered from faults by the end of {after}: "
+                         f"recoveries {rec}, faults {flt}")
+
+
+def das_phase(torch, np, dev, table, max_mhz, settings) -> None:
+    """Phase 17: PeerDAS cells and cell proofs (``crypto/das.py``) at width
+    4096 on phase 11's ``KzgSettings.dev(4096)`` and its monomial points."""
+    from lighthouse_tpu_torch import testing as T
+    from lighthouse_tpu_torch.crypto import das, kzg
+    from lighthouse_tpu_torch.crypto.bls import curve as cv
+    from lighthouse_tpu_torch.ops import bigint as bi
+    from lighthouse_tpu_torch.ops import bls12_381 as t12
+    from lighthouse_tpu_torch.ops import bls_backend as bb
+    from lighthouse_tpu_torch.ops import bls_cuda, msm
+
+    t_phase = time.perf_counter()
+    props = torch.cuda.get_device_properties(0)
+    imad_per_s = props.multi_processor_count * IMAD_LANES_PER_SM * max_mhz * 1e6
+    fp = bls_cuda.IMADS_PER_FP_MUL
+    R = kzg.BLS_MODULUS
+    w = settings.width
+    n_cells, cs = das._cell_geometry(w)
+    rng = np.random.default_rng(DAS_SEED)
+    blobs = [T.kzg_blob(w, rng) for _ in range(DAS_BLOBS)]
+    commits = [kzg.blob_to_kzg_commitment(b, settings, dev) for b in blobs]
+    columns = sorted(int(c) for c in rng.choice(n_cells, DAS_SAMPLE_COLUMNS, replace=False))
+
+    def cuda_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def bound(fp_muls: int, nbytes: int) -> tuple[float, str]:
+        ops_ms = fp_muls * fp / imad_per_s * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+    def batch(cells, proofs, cols):
+        keys = [(b, c) for c in cols for b in range(DAS_BLOBS)]
+        return ([commits[b] for b, _ in keys], [c for _, c in keys],
+                [cells[b][c] for b, c in keys], [proofs[b][c] for b, c in keys])
+
+    # the main path, counted: the proposer's cells and proofs of the block's
+    # blobs, a node's sampling round, a supernode's batch, a recovery
+    torch.cuda.synchronize()
+    kzg.reset_launches()
+    t0 = time.perf_counter()
+    made = [das.compute_cells_and_kzg_proofs(b, settings, dev) for b in blobs]
+    proposer_s = time.perf_counter() - t0
+    cells, proofs = [m[0] for m in made], [m[1] for m in made]
+    s48, s768 = batch(cells, proofs, columns), batch(cells, proofs, range(n_cells))
+    ok48 = das.verify_cell_kzg_proof_batch(*s48, settings, dev)
+    ok768 = das.verify_cell_kzg_proof_batch(*s768, settings, dev)
+    even = list(range(0, n_cells, 2))
+    recovered = das.recover_all_cells(even, [cells[0][i] for i in even], settings)
+    counted = {k.__name__: (k.launches, calls_of(k)) for k in kzg.KERNELS}
+    if not (ok48 and ok768):
+        raise SystemExit(f"valid DAS batches failed: 48 cells {ok48}, 768 cells {ok768}")
+    if counted["fold_device"][0] == 0 or counted["kzg_fused_device"][0] == 0:
+        raise SystemExit(f"the DAS main path did not launch rows 13 and 14: {counted}")
+    log(f"main path: {DAS_BLOBS} blobs' cells and proofs {proposer_s:.2f} s; sampling round "
+        f"(columns {columns} x {DAS_BLOBS} blobs = {len(s48[0])} cells) True; supernode batch "
+        f"({len(s768[0])} cells) True; recovery from the even {len(even)} cells; rows 13 and 14 "
+        f"(launches, calls) over the path: row 13 {counted['fold_device']}, row 14 "
+        f"{counted['kzg_fused_device']}, row 10 {counted['miller_reduce_device']}")
+
+    # checks after the counted run: cells, proofs == [q_c(tau)]G1 from the
+    # host (p(tau) by the barycentric evaluation, I_c(tau) on the coset)
+    tau = 0x123456789ABCDEF
+    ext_roots = kzg._compute_roots_of_unity(2 * w)
+    nat = kzg._bit_reversal_permutation(list(range(2 * w)))
+    xs_brp = [ext_roots[nat[i]] for i in range(2 * w)]
+    inv_tau_minus_x = kzg._batch_inverse([(tau - x) % R for x in xs_brp])
+    want_q = []
+    for b, blob in enumerate(blobs):
+        if cells[b] != das.compute_cells(blob, settings):
+            raise SystemExit(f"blob {b}: compute_cells_and_kzg_proofs' cells != compute_cells")
+        p_tau = kzg.evaluate_polynomial_in_evaluation_form(kzg.blob_to_polynomial(blob, settings),
+                                                           tau, settings)
+        for c in range(n_cells):
+            hcs = pow(xs_brp[c * cs], cs, R)
+            z_tau = (pow(tau, cs, R) - hcs) % R
+            vals = [int.from_bytes(cells[b][c][32 * k:32 * k + 32], "big") for k in range(cs)]
+            acc = sum(v * xs_brp[c * cs + k] % R * inv_tau_minus_x[c * cs + k]
+                      for k, v in enumerate(vals)) % R
+            i_over_z = acc * pow(cs * hcs % R, -1, R) % R
+            want_q.append((p_tau * pow(z_tau, -1, R) - i_over_z) % R)
+    g1 = cv.g1_generator()
+    want = msm.host_lincomb_groups([g1] * len(want_q), want_q, range(len(want_q)), len(want_q))
+    got = [p for prf in proofs for p in prf]
+    bad = [i for i, (g_, w_) in enumerate(zip(got, want)) if g_ != cv.g1_to_bytes(w_)]
+    if bad:
+        raise SystemExit(f"{len(bad)} cell proofs differ from [q_c(tau)]G1 (first: blob "
+                         f"{bad[0] // n_cells}, cell {bad[0] % n_cells})")
+    if recovered != cells[0]:
+        raise SystemExit("recover_all_cells from the even half differs from the cells")
+    corrupt_ids = even + [1]
+    corrupt = [cells[0][i] for i in corrupt_ids]
+    corrupt[3] = corrupt[3][:-1] + bytes([corrupt[3][-1] ^ 1])
+    try:
+        das.recover_all_cells(corrupt_ids, corrupt, settings)
+        raise SystemExit("recovery from 65 cells, one corrupted, succeeded")
+    except kzg.KzgError as e:
+        if str(e) != "recovered polynomial exceeds blob degree (inconsistent cells)":
+            raise SystemExit(f"the corrupted recovery raised another message: {e}")
+    log(f"{DAS_BLOBS * n_cells} cells == compute_cells and proofs == [q_c(tau)]G1 (one native "
+        f"scalar multiplication a cell); recovery == the cells; 65 cells with one corrupted "
+        f"raise 'recovered polynomial exceeds blob degree (inconsistent cells)'")
+
+    def tampered(s):
+        c_, ids, cl, pr = (list(x) for x in s)
+        one = list(cl)
+        v = int.from_bytes(one[2][:32], "big")
+        one[2] = ((v + 1) % R).to_bytes(32, "big") + one[2][32:]
+        swapped = list(pr)
+        swapped[0], swapped[1] = swapped[1], swapped[0]
+        moved = list(ids)
+        moved[4] = (moved[4] + 1) % n_cells
+        return {"element + 1": (c_, ids, one, pr), "proofs swapped": (c_, ids, cl, swapped),
+                "cell id moved": (c_, moved, cl, pr)}
+
+    verdicts = {f"{n} {k}": das.verify_cell_kzg_proof_batch(*v, settings, dev)
+                for n, s in (("48", s48), ("768", s768)) for k, v in tampered(s).items()}
+    if any(verdicts.values()):
+        raise SystemExit(f"a tampered DAS batch verified: {verdicts}")
+    before = (kzg.kzg_fused_device.launches, t12.miller_reduce_device.launches)
+    seven = tuple(x[:7] for x in s48)
+    seven_ok = das.verify_cell_kzg_proof_batch(*seven, settings, dev)
+    seven_bad = das.verify_cell_kzg_proof_batch(*tampered(seven)["proofs swapped"], settings, dev)
+    after = (kzg.kzg_fused_device.launches, t12.miller_reduce_device.launches)
+    if not seven_ok or seven_bad or after[0] != before[0] or after[1] == before[1]:
+        raise SystemExit(f"a 7-cell batch: valid {seven_ok}, tampered {seven_bad}, row 14 "
+                         f"launches {after[0] - before[0]}, row 10 {after[1] - before[1]}")
+    log(f"tampered batches rejected: {verdicts}; a 7-cell batch takes the per-cell check "
+        f"(row 10, {after[1] - before[1]} launches; row 14 none): valid True, swapped False")
+
+    # rows 13 and 14 at the DAS shapes against their plain versions
+    coeffs = das._poly_coeffs_from_blob(blobs[0], w)
+    qs = das._quotients(coeffs, w)
+    seg = msm.bucket(len(qs[0]))
+    mono = settings.g1_monomial[:seg]
+    mx = bi.ints_to_mont_limbs([p[0] for p in mono])
+    my = bi.ints_to_mont_limbs([p[1] for p in mono])
+    chunk = 1 << ((das._CELL_PROOF_MAX_LANES // seg).bit_length() - 1)
+
+    def fold_args(n):
+        xs, ys, digits, g_pad = das.cell_proof_lanes(qs[:n], mx, my, np.ones(seg, bool), seg)
+        return (bi.to_tensor(xs, dev), bi.to_tensor(ys, dev),
+                torch.from_numpy(digits.view(np.int32)).to(dev), g_pad), digits
+
+    def once_ms(fn):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    cut, cut_digits = fold_args(2)
+    got = msm.fold_device(*cut)
+    want_f, plain13_ms = once_ms(lambda: msm.fold_plain(*cut))
+    err13 = max(int((bi.u64(a) - bi.u64(b)).abs().max()) for a, b in zip(got, want_f))
+    full, full_digits = fold_args(chunk)
+    ms_cut, ms_full = cuda_ms(lambda: msm.fold_device(*cut), 3), cuda_ms(
+        lambda: msm.fold_device(*full), 3)
+    b_cut = bound(bls_cuda.g1_fold_fp_muls(cut_digits, cut[3]), cut[0].shape[0] * (96 + 256))
+    b_full = bound(bls_cuda.g1_fold_fp_muls(full_digits, full[3]),
+                   full[0].shape[0] * (96 + 256))
+    if err13:
+        raise SystemExit(f"row 13 at the cell-proof layout disagrees with plain (max err {err13})")
+    log(f"kernel g1_fold at the cell-proof layout [{cut[0].shape[0]} lanes, {cut[3]} segments: "
+        f"2 cells of a chunk]: == plain (max err 0); {ms_cut:.4f} ms, plain {plain13_ms:.2f} ms, "
+        f"bound {b_cut[0]:.4f} ms "
+        f"({b_cut[1]}); a whole chunk [{full[0].shape[0]} lanes, {full[3]} segments]: "
+        f"{ms_full:.4f} ms, bound {b_full[0]:.4f} ms ({b_full[1]}), "
+        f"{1 + (full[0].shape[0] // full[3]).bit_length() - 1} launches a chunk, "
+        f"{-(-n_cells // chunk)} chunks a blob")
+    xq, yq = settings.g2_rows(dev, settings.g2_monomial[cs])
+    for label, s_ in (("48", s48), ("768", s768)):
+        terms = das._batch_terms(*s_, settings, None)
+        lanes = kzg.fused_lanes(*terms, dev)
+        live = (msm.fold_device(*lanes[:3], 2)[2] != 0).any(-1).cpu().numpy()
+        b14 = bound(bls_cuda.g1_fold_fp_muls(lanes[2].cpu().numpy(), 2)
+                    + bls_cuda.miller_reduce_fp_muls(live),
+                    lanes[0].shape[0] * (96 + 256) + 2 * 192 + 576)
+        ms14 = cuda_ms(lambda: kzg.kzg_fused_device(*lanes, xq, yq), 3)
+        extra = ""
+        if label == "48":
+            got14 = kzg.kzg_fused_device(*lanes, xq, yq)
+            want14, plain14_ms = once_ms(lambda: kzg.kzg_fused_plain(*lanes, xq, yq))
+            err14 = int((bi.u64(got14) - bi.u64(want14)).abs().max())
+            if err14:
+                raise SystemExit(f"row 14 at the 48-cell batch disagrees with plain "
+                                 f"(max err {err14})")
+            extra = f" == plain (max err 0), plain {plain14_ms:.2f} ms;"
+            f = t12.fq12_from_words(bi.to_numpy(got14))
+            if not bb.final_exp_is_one(f, dev):
+                raise SystemExit("row 14's 48-cell product does not exponentiate to one")
+        log(f"kernel kzg_fused at the {label}-cell batch [{len(terms[0])} lhs points, "
+            f"{lanes[0].shape[0]} lanes, tau^{cs}.G2]:{extra} {ms14:.4f} ms, bound "
+            f"{b14[0]:.4f} ms ({b14[1]})")
+
+    # numbers: p50 of 3 with stage seconds
+    def p50_run(fn):
+        walls, stages = [], []
+        for _ in range(DAS_RUNS):
+            ledger: dict = {}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(ledger)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            stages.append(ledger)
+        keys = stages[0]
+        return statistics.median(walls), {k: statistics.median(s[k] for s in stages) * 1e3
+                                          for k in keys}
+
+    proofs_ms, proofs_st = p50_run(lambda led: das.compute_cells_and_kzg_proofs(
+        blobs[0], settings, dev, ledger=led))
+    v48_ms, v48_st = p50_run(lambda led: das.verify_cell_kzg_proof_batch(*s48, settings, dev,
+                                                                         ledger=led))
+    v768_ms, v768_st = p50_run(lambda led: das.verify_cell_kzg_proof_batch(*s768, settings, dev,
+                                                                           ledger=led))
+
+    def recover(led):
+        t = time.perf_counter()
+        das.recover_all_cells(even, [cells[0][i] for i in even], settings)
+        led["host"] = time.perf_counter() - t
+
+    rec_ms, rec_st = p50_run(recover)
+    log(json.dumps({"das_cells_proofs_ms": proofs_ms, "das_cells_proofs_stages_ms": proofs_st,
+                    "das_verify_48_ms": v48_ms, "das_verify_48_stages_ms": v48_st,
+                    "das_verify_768_ms": v768_ms, "das_verify_768_stages_ms": v768_st,
+                    "das_recover_ms": rec_ms, "das_recover_stages_ms": rec_st,
+                    "das_width": w, "das_cells": n_cells, "das_cell_size": cs}))
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+
+def supervisor_phase(torch) -> None:
+    """Phase 18: the BLS supervisor on the card.  Each fault injected at the
+    ``cuda`` backend's entry (raise; corrupt, with the audit on; hang, past
+    a 2 s watchdog) into a batch of 8 microbench sets gives the reference
+    verdict with exactly one recovery counted; then a clean batch counts
+    none.  The ladder is ``cuda,reference`` here: with the default
+    ``cuda,sharded,reference`` the sharded rung would serve the batch."""
+    import threading
+
+    from lighthouse_tpu_torch import testing as T
+    from lighthouse_tpu_torch.crypto.bls import api as bls
+    from lighthouse_tpu_torch.ops import faults
+
+    t_phase = time.perf_counter()
+    sets = T.microbench_sets(SUPERVISOR_SETS)
+    ref = bls.verify_signature_sets(T.fresh(sets), backend="reference")
+    knobs = {"LHGPU_SUPERVISOR_AUDIT": "1", "LHGPU_WATCHDOG_S": str(SUPERVISOR_WATCHDOG_S),
+             "LHGPU_SUPERVISOR_LADDER": "cuda,reference"}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    results = {}
+    try:
+        for mode in ("raise", "corrupt", "hang"):
+            bls.reset_supervisor()
+            before = sum(bls.recoveries().values())
+            faults.install_plan(faults.FaultPlan(mode, sites={"cuda"}, hang_s=SUPERVISOR_HANG_S,
+                                                 corrupt_value=not ref))
+            t0 = time.perf_counter()
+            ok = bls.verify_signature_sets(T.fresh(sets), backend="cuda")
+            results[mode] = (ok, sum(bls.recoveries().values()) - before,
+                             round(time.perf_counter() - t0, 3), bls.backend_health()["cuda"])
+            faults.install_plan(None)
+        faults.clear()
+        bls.reset_supervisor()
+        before = sum(bls.recoveries().values())
+        clean = bls.verify_signature_sets(T.fresh(sets), backend="cuda")
+        clean_rec = sum(bls.recoveries().values()) - before
+    finally:
+        faults.clear()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        bls.reset_supervisor()
+    for t in threading.enumerate():          # the hang's abandoned thread ends on its own
+        if t.name.startswith("lhgpu-") and t.name != faults.IDLE_NAME:
+            t.join(SUPERVISOR_HANG_S + 30)
+    wrong = {m: r for m, r in results.items() if r[0] != ref or r[1] != 1 or r[3] != "open"}
+    if wrong or clean != ref or clean_rec:
+        raise SystemExit(f"supervisor on the card: reference verdict {ref}; per fault (verdict, "
+                         f"recoveries, s, breaker) {results}; clean batch {clean} with "
+                         f"{clean_rec} recoveries")
+    log(f"supervisor on the card ({SUPERVISOR_SETS} sets, reference verdict {ref}): per fault "
+        f"(verdict, recoveries, s, breaker) {results}; faults by kind {bls.faults()}; a clean "
+        f"batch {clean} with no recovery")
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

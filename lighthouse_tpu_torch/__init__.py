@@ -14,7 +14,11 @@ Deneb epoch boundary (``state_transition.epoch_processing``), Deneb blob
 KZG verification (``crypto.kzg`` over ``ops.fr``, ``ops.msm`` and
 ``ops.bls12_381``) with the trusted-setup load, and the gossip attestation
 firehose (``chain.columnar_ingest.process_wire_batch`` over
-``chain.beacon_chain``, ``chain.pubkey_plane`` and ``ops.pubkey_kernels``).
+``chain.beacon_chain``, ``chain.pubkey_plane`` and ``ops.pubkey_kernels``),
+block import with blobs and fork choice (``chain``, ``fork_choice``), the
+multi-device rungs (``parallel``), PeerDAS cells and cell proofs
+(``crypto.das``) and the BLS offload supervisor (``crypto.bls.api``,
+``ops.faults``).
 """
 
 __version__ = "0.1.0"

@@ -412,16 +412,17 @@ class BeaconChain:
         return root
 
     def _on_finalized(self) -> None:
-        """Once fork choice's finalized checkpoint moves: its balance
-        snapshots that can no longer be justified go, and so do blocks
-        waiting for sidecars below the finalized slot, from the checker and
-        from ``_pending_executed`` (the JAX chain's ``_on_finalized``)."""
+        """Once fork choice's finalized checkpoint moves: fork choice prunes
+        its proto-array, votes and balance snapshots to the finalized block,
+        and blocks waiting for sidecars below the finalized slot go, from
+        the checker and from ``_pending_executed`` (the JAX chain's
+        ``_on_finalized``)."""
         epoch = self.fork_choice.finalized.epoch
         if epoch <= self._pruned_finalized_epoch:
             return
         self._pruned_finalized_epoch = epoch
         fin_slot = self.spec.compute_start_slot_at_epoch(epoch)
-        self.fork_choice.prune_balance_snapshots()
+        self.fork_choice.prune()
         self.da_checker.prune_finalized(fin_slot)
         self._pending_executed = {r: p for r, p in self._pending_executed.items()
                                   if int(p.signed_block.message.slot) >= fin_slot}

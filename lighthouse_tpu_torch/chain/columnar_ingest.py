@@ -25,9 +25,13 @@ Semantics are the scalar lane's: the same reject vocabulary, dup caches
 read before signature verification and claimed under the commit lock
 after it, a failed fast path bisected over the ORIGINAL per-row sets, and a
 lane whose signature resists (undecompressable, infinity, outside G2) or
-whose aggregate is the identity passes through UNMERGED.  A device fault
-raises: the JAX package's recoveries (a failed fold turned into unmerged
-lanes, the host fallback of the signature MSM) are not ported.
+whose aggregate is the identity passes through UNMERGED.  The JAX
+package's recoveries are here, each counted in the BLS supervisor's
+``faults()`` and ``recoveries()``: a fold that faults turns its lanes into
+unmerged ones (``_fold_lanes``, :476-544), and a fault of the native
+signature MSM falls back to host point arithmetic (``_sig_accs``,
+:605-629).  Both catch only a device or build fault
+(``ops/faults.is_device_fault``); any other exception raises.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from lighthouse_tpu_torch.chain import pubkey_plane
 from lighthouse_tpu_torch.crypto.bls import api as bls
 from lighthouse_tpu_torch.crypto.bls import curve as cv
 from lighthouse_tpu_torch.crypto.bls.fields import R as _R
-from lighthouse_tpu_torch.ops import native_bls
+from lighthouse_tpu_torch.ops import faults, native_bls
 from lighthouse_tpu_torch.pool import pre_aggregation
 from lighthouse_tpu_torch.ssz import columnar
 from lighthouse_tpu_torch.state_transition import misc
@@ -370,9 +374,16 @@ def _fold_lanes(chain, prep, lane_sets: list[list[int]]) -> tuple[list, list[int
     merged: list = []
     n_folded = 0
     if cand:
-        pk_pts = pubkey_plane.get_plane().fold(
-            chain.head_state.validators, np.array(fold_idx, np.int64),
-            np.array(fold_r, np.uint64), np.array(fold_lane, np.int64), len(cand))
+        try:
+            pk_pts = pubkey_plane.get_plane().fold(
+                chain.head_state.validators, np.array(fold_idx, np.int64),
+                np.array(fold_r, np.uint64), np.array(fold_lane, np.int64), len(cand))
+        except Exception as e:          # every lane passes through unmerged
+            if not faults.is_device_fault(e):
+                raise
+            bls.record_fault("pubkey_plane", faults.classify(e), e)
+            bls.record_recovery("fold_lanes", "unmerged lanes")
+            pk_pts = [None] * len(cand)
         sig_accs = _sig_accs(cand)
         for lane, pk_pt, sig_acc in zip(cand, pk_pts, sig_accs):
             if pk_pt is None or sig_acc is None:
@@ -419,15 +430,31 @@ def _fold_sig_side(prep, members: list[int]):
 
 
 def _sig_accs(cand: list[dict]) -> list:
-    """Σ rᵢ·sigᵢ per lane in one native segment MSM; None for an identity
-    sum (such a merged set can never verify: the lane goes unmerged)."""
+    """Σ rᵢ·sigᵢ per lane in one native segment MSM, or on a fault of the
+    native call (``faults.is_device_fault``: its library's build, an
+    injected fault) host point arithmetic (a counted recovery, the JAX
+    package's :605-629); None for an identity sum (such a merged set can
+    never verify: the lane goes unmerged)."""
     pts, scalars, gids = [], [], []
     for lane_id, lane in enumerate(cand):
         for pt, s in lane["terms"]:
             pts.append(((pt[0].a, pt[0].b), (pt[1].a, pt[1].b)))
             scalars.append(s)
             gids.append(lane_id)
-    res = native_bls.g2_lincomb_groups(pts, scalars, gids, len(cand))
+    try:
+        res = native_bls.g2_lincomb_groups(pts, scalars, gids, len(cand))
+    except Exception as e:
+        if not faults.is_device_fault(e):
+            raise
+        bls.record_fault("native_g2_lincomb", faults.classify(e), e)
+        bls.record_recovery("sig_accs", "host point arithmetic")
+        out = []
+        for lane in cand:
+            acc = cv.INF
+            for pt, s in lane["terms"]:
+                acc = cv.g2_add(acc, cv.g2_mul(pt, s))
+            out.append(None if acc is cv.INF else acc)
+        return out
     return [None if v is None else (cv.Fq2(*v[0]), cv.Fq2(*v[1])) for v in res]
 
 

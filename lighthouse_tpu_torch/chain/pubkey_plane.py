@@ -16,9 +16,12 @@ in one call.  Rungs (routing as in the JAX package):
 
 ``LHGPU_PUBKEY_BACKEND=device|sharded|reference`` forces a rung (tests, the
 smoke run; ``sharded`` on a CPU plane is a mesh of the CPU alone).  A
-device fault RAISES: the JAX package's recovery onto the reference rung
-and its breaker are not ported (the supervisor, ROADMAP A 5a, is the only
-place a recovery may live).
+device fault (``ops/faults.is_device_fault``; any other exception raises)
+of a device rung folds the batch again on the reference rung (the JAX
+package's :322-346), counted in the BLS supervisor's ``faults()`` and
+``recoveries()`` (``crypto/bls/api.py``); the supervisor's ``pubkey``
+breaker benches the device rungs after it, as the JAX plane's breaker
+does, unless a rung is forced.
 
 Table discipline: validator pubkeys are append-only and immutable per
 index, so a table covering rows [0, T) stays valid for any registry grown
@@ -86,6 +89,8 @@ class PubkeyPlane:
                 raise ValueError(f"LHGPU_PUBKEY_BACKEND={forced!r}: use one of {_RUNGS}")
             return forced
         if n_lanes < max(device_min(), 1) or self.device.type != "cuda":
+            return "reference"
+        if not bls.plane_breaker("pubkey").allow():
             return "reference"
         return "sharded" if torch.cuda.device_count() > 1 else "device"
 
@@ -158,11 +163,24 @@ class PubkeyPlane:
         scalars[i]·pubkey(indices[i]) as affine int points, None for an
         identity aggregate (such a merged set can never verify)."""
         rung = self.resolve_rung(len(indices))
-        self.folds[rung] = self.folds.get(rung, 0) + 1
         if rung != "reference":
-            return self._fold_device(validators, indices, scalars, groups, n_groups,
-                                     sharded=rung == "sharded")
-        return self._fold_host(validators, indices, scalars, groups, n_groups)
+            from lighthouse_tpu_torch.ops import faults
+
+            try:
+                out = self._fold_device(validators, indices, scalars, groups, n_groups,
+                                        sharded=rung == "sharded")
+                bls.plane_breaker("pubkey").record_success()
+            except Exception as e:
+                if not faults.is_device_fault(e):
+                    raise
+                bls.record_fault(f"pubkey_{rung}", faults.classify(e), e)
+                bls.plane_breaker("pubkey").record_failure()
+                bls.record_recovery("pubkey_plane")
+                rung = "reference"
+        if rung == "reference":
+            out = self._fold_host(validators, indices, scalars, groups, n_groups)
+        self.folds[rung] = self.folds.get(rung, 0) + 1
+        return out
 
     def _fold_device(self, validators, indices, scalars, groups, n_groups: int, *,
                      sharded: bool) -> list:

@@ -32,7 +32,8 @@ def signature_sets_from_bytes(items):
 def kzg_settings_from_points(settings):
     """The port's ``KzgSettings`` from another package's setup object (for
     example the JAX package's ``KzgSettings``): its affine G1 int pairs and
-    its G2 points, whose Fq2 coordinates carry ``.a`` and ``.b`` ints."""
+    its G2 points, whose Fq2 coordinates carry ``.a`` and ``.b`` ints, the
+    monomial halves included when it has them."""
     from lighthouse_tpu_torch.crypto.bls.fields import Fq2
     from lighthouse_tpu_torch.crypto.kzg import KzgSettings
 
@@ -42,5 +43,9 @@ def kzg_settings_from_points(settings):
     def g2(q):
         return None if q is None else (Fq2(int(q[0].a), int(q[0].b)), Fq2(int(q[1].a), int(q[1].b)))
 
+    g1_mono = getattr(settings, "g1_monomial", None)
+    g2_mono = getattr(settings, "g2_monomial", None)
     return KzgSettings(int(settings.width), [g1(p) for p in settings.g1_lagrange_brp],
-                       g2(settings.g2_tau), [int(w) for w in settings.roots_brp])
+                       g2(settings.g2_tau), [int(w) for w in settings.roots_brp],
+                       g1_monomial=None if g1_mono is None else [g1(p) for p in g1_mono],
+                       g2_monomial=None if g2_mono is None else [g2(q) for q in g2_mono])

@@ -8,13 +8,21 @@ from lighthouse_tpu_torch.crypto.bls.api import (
     SecretKey,
     Signature,
     SignatureSet,
+    aggregate_verify,
+    backend_health,
+    fast_aggregate_verify,
+    get_backend,
+    recoveries,
     register_backend,
+    reset_supervisor,
+    set_backend,
     verify,
     verify_signature_sets,
 )
 from lighthouse_tpu_torch.crypto.bls.hash_to_curve import DST_G2, hash_to_g2
 
 __all__ = [
-    "BlsError", "PublicKey", "SecretKey", "Signature", "SignatureSet", "register_backend",
-    "verify", "verify_signature_sets", "DST_G2", "hash_to_g2",
+    "BlsError", "PublicKey", "SecretKey", "Signature", "SignatureSet", "aggregate_verify",
+    "backend_health", "fast_aggregate_verify", "get_backend", "recoveries", "register_backend",
+    "reset_supervisor", "set_backend", "verify", "verify_signature_sets", "DST_G2", "hash_to_g2",
 ]

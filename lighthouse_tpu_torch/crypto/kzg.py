@@ -86,9 +86,10 @@ def _compute_roots_of_unity(order: int) -> list[int]:
 class KzgSettings:
     """Trusted setup in Lagrange form (bit-reversed order, like the spec).
 
-    g1_lagrange_brp[i] = L_brp(i)(τ)·G1;  g2_tau = τ·G2.  A ceremony load
-    also keeps the monomial points (``g1_monomial`` when the file has them,
-    ``g2_monomial`` = [τ^i]·G2), which wait for a ported consumer (DAS)."""
+    g1_lagrange_brp[i] = L_brp(i)(τ)·G1;  g2_tau = τ·G2.  The monomial
+    points, ``g1_monomial`` = [τ^i]·G1 (a ceremony load keeps them when the
+    file has them) and ``g2_monomial`` = [τ^i]·G2, carry the PeerDAS cell
+    proofs (``crypto/das.py``)."""
 
     width: int
     g1_lagrange_brp: list          # affine G1 points (int pairs)
@@ -102,11 +103,12 @@ class KzgSettings:
     @lru_cache(maxsize=4)
     def dev(width: int = 16, tau: int = 0x123456789ABCDEF, device=None) -> "KzgSettings":
         """INSECURE dev setup from a known τ (tests and benchmarks only):
-        the Lagrange points and τ·G2 of the JAX package's ``KzgSettings.dev``,
-        computed as one scalar multiple of the generator per lane
-        (``msm.lincomb_per_point``: row 13 on ``device`` at 256 lanes or
-        more, the native host seam below) instead of one Python scalar
-        multiplication each."""
+        the Lagrange points, τ·G2 and the monomial halves of the JAX
+        package's ``KzgSettings.dev`` ([τ^i]·G1 for i < width, [τ^i]·G2 for
+        i <= min(width, 64)).  The G1 points are one scalar multiple of the
+        generator per lane (``msm.lincomb_per_point``: row 13 on ``device``
+        at 256 lanes or more, the native host seam below) instead of one
+        Python scalar multiplication each; the G2 points one native call."""
         device = resolve_device(device)
         roots_brp = _bit_reversal_permutation(_compute_roots_of_unity(width))
         tau_pow = pow(tau, width, BLS_MODULUS)
@@ -116,9 +118,17 @@ class KzgSettings:
             num = w_i * (tau_pow - 1) % BLS_MODULUS
             den = width * (tau - w_i) % BLS_MODULUS
             lagrange_k.append(num * pow(den, -1, BLS_MODULUS) % BLS_MODULUS)
-        lagrange = msm.lincomb_per_point([cv.g1_generator()] * width, lagrange_k, device=device)
-        g2_tau = msm.host_lincomb_groups_g2([cv.g2_generator()], [tau], None, 1)[0]
-        return KzgSettings(width, lagrange, g2_tau, roots_brp)
+        tau_pows = [1]
+        for _ in range(width - 1):
+            tau_pows.append(tau_pows[-1] * tau % BLS_MODULUS)
+        g1 = msm.lincomb_per_point([cv.g1_generator()] * (2 * width), lagrange_k + tau_pows,
+                                   device=device)
+        n_g2 = min(width, 64) + 1
+        g2_pows = (tau_pows + [tau_pows[-1] * tau % BLS_MODULUS])[:n_g2]
+        g2_monomial = msm.host_lincomb_groups_g2([cv.g2_generator()] * n_g2, g2_pows,
+                                                 range(n_g2), n_g2)
+        return KzgSettings(width, g1[:width], g2_monomial[1], roots_brp,
+                           g1_monomial=g1[width:], g2_monomial=g2_monomial)
 
     @staticmethod
     def from_setup_points(g1_lagrange_brp: list, g2_tau) -> "KzgSettings":
@@ -185,13 +195,15 @@ class KzgSettings:
         s.g2_monomial = g2_monomial
         return s
 
-    def g2_rows(self, device) -> tuple[torch.Tensor, torch.Tensor]:
-        """(−G2, τ·G2) as Montgomery words (xq, yq int32 [2, 2, 12]) on
-        ``device``: the fused check's Q lanes, packed once per device."""
-        key = str(device)
+    def g2_rows(self, device, tau_g2=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(−G2, ``tau_g2``) as Montgomery words (xq, yq int32 [2, 2, 12]) on
+        ``device``: the fused check's Q lanes, τ·G2 unless another point is
+        given (the cell batch's τ^cs·G2), packed once per device and point."""
+        point = self.g2_tau if tau_g2 is None else tau_g2
+        key = (str(device), point[0].a, point[0].b, point[1].a, point[1].b)
         rows = self._g2_rows.get(key)
         if rows is None:
-            rows = ec.g2_words([cv.g2_neg(cv.g2_generator()), self.g2_tau], device)
+            rows = ec.g2_words([cv.g2_neg(cv.g2_generator()), point], device)
             self._g2_rows[key] = rows
         return rows
 

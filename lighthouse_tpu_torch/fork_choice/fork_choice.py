@@ -10,10 +10,11 @@ with ``_compute_unrealized`` and ``_update_checkpoints`` (:155-262),
 ``on_attester_slashing`` (:305), and ``get_head`` with its vote deltas and
 proposer boost (:316-376).  Votes are numpy columns over validator index
 (vote node, vote epoch, the vote the weights hold, its balance,
-equivocation), so a batch of attesters is one vectorised scatter.  The
-balance snapshots are pruned as ``prune`` prunes them (:411-428).  Not
-ported (ROADMAP A 15): the proposer re-org head, the proto-array's
-pruning, execution-status updates and persistence.
+equivocation), so a batch of attesters is one vectorised scatter.
+``prune`` (:411-428) prunes the proto-array at finalization, re-maps the
+votes and drops the balance snapshots of pruned roots.  Not ported
+(ROADMAP A 15): the proposer re-org head, execution-status updates and
+persistence.
 """
 
 from __future__ import annotations
@@ -212,16 +213,25 @@ class ForkChoice:
         if finalized.epoch > self.finalized.epoch:
             self.finalized = finalized
 
-    def prune_balance_snapshots(self) -> None:
-        """Drop the balance snapshots that can no longer become the
-        justified checkpoint's: all but the justified root's, the finalized
-        root's and its descendants' (the JAX package's ``prune`` keeps the
-        same roots)."""
-        fin = self.finalized.root
-        fin_slot = int(self.proto.slots[self.proto.indices[fin]])
-        self._balance_snapshots = {
-            r: b for r, b in self._balance_snapshots.items()
-            if r == self.justified.root or self.proto.get_ancestor(r, fin_slot) == fin}
+    def prune(self) -> None:
+        """Prune the proto-array to the finalized block and its descendants,
+        re-map both vote columns through its index mapping (a vote for a
+        pruned node becomes NONE), and drop the balance snapshots of pruned
+        roots (the justified root's stays)."""
+        mapping = self.proto.prune(self.finalized.root)
+        lut = np.full(max(mapping, default=0) + 1, NONE, np.int32)
+        for old, new in mapping.items():
+            lut[old] = new
+        for name in ("_vote_current", "_vote_next"):
+            col = getattr(self, name)
+            ok = (col != NONE) & (col < lut.shape[0])
+            out = np.full_like(col, NONE)
+            out[ok] = lut[col[ok]]
+            setattr(self, name, out)
+        live = set(self.proto.indices)
+        live.add(self.justified.root)
+        self._balance_snapshots = {r: b for r, b in self._balance_snapshots.items()
+                                   if r in live}
 
     def on_attester_slashing(self, attesting_indices: np.ndarray) -> None:
         """Zero equivocating validators out of fork choice for good."""

@@ -5,9 +5,9 @@ node columns with each node's weight, best child and best descendant,
 justified, finalized and unrealized checkpoint epochs and execution status,
 adding a node (``add_block`` :92), membership (``__contains__`` :74),
 ``indices``, ``slots``, the head's viability filter, score changes and walk
-(``_viable_mask`` :131, ``apply_score_changes`` :169, ``find_head`` :233)
-and ``get_ancestor`` (:253).  Pruning and the execution-status updates are
-not ported (ROADMAP A 15).
+(``_viable_mask`` :131, ``apply_score_changes`` :169, ``find_head`` :233),
+``get_ancestor`` (:253) and ``prune`` (:318).  The execution-status updates
+are not ported (ROADMAP A 15).
 """
 
 from __future__ import annotations
@@ -190,3 +190,45 @@ class ProtoArray:
         while i != NONE and self.slots[i] > slot:
             i = self.parents[i]
         return self.roots[i] if i != NONE else None
+
+    # -- pruning ----------------------------------------------------------------
+
+    def prune(self, finalized_root: bytes) -> dict[int, int]:
+        """Keep the finalized block and its descendants, compacted in their
+        order, and return the old-to-new index mapping of the kept nodes
+        (the vote columns re-map through it)."""
+        if finalized_root not in self.indices:
+            raise ProtoArrayError("cannot prune to unknown root")
+        fin = self.indices[finalized_root]
+        n = self.n_nodes
+        keep = np.zeros(n, bool)
+        keep[fin] = True
+        parents = self.parents[:n]
+        for i in range(fin + 1, n):
+            p = parents[i]
+            if p != NONE and keep[p]:
+                keep[i] = True
+        if keep.all():
+            return {i: i for i in range(n)}
+        new_of_old = np.cumsum(keep) - 1
+        kept = np.nonzero(keep)[0]
+        m = kept.shape[0]
+        for name in self._COLUMNS:
+            col = getattr(self, name)
+            vals = col[kept]
+            if name in ("parents", "best_child", "best_descendant"):
+                # pointers re-map; one that leaves the kept set (the
+                # finalized node's parent) becomes NONE
+                ok = vals != NONE
+                ok[ok] = keep[vals[ok]]
+                vals = np.where(ok, new_of_old[np.where(ok, vals, 0)], NONE).astype(col.dtype)
+            col[:m] = vals
+            col[m:n] = self._COLUMNS[name][1]
+        self.roots = [self.roots[i] for i in kept]
+        self.justified_roots = [self.justified_roots[i] for i in kept]
+        self.unrealized_justified_roots = [self.unrealized_justified_roots[i] for i in kept]
+        self.indices = {r: i for i, r in enumerate(self.roots)}
+        if hasattr(self, "_viable"):
+            self._viable = self._viable[kept]
+        self.n_nodes = m
+        return {int(i): int(new_of_old[i]) for i in kept}

@@ -28,9 +28,15 @@ Beside the verifier: ``batch_subgroup_check_g1``, the [r-1]P membership
 test of many G1 points at once (``g1_subgroup_device``, row 12), which the
 trusted-setup load (``crypto/kzg.py``) runs over every setup point.
 
-There is no supervisor: a failed build or launch raises, and nothing falls
-back to the host or to the plain versions on a CUDA device.  On the CPU
-(``device="cpu"``) every wrapper runs its plain PyTorch version.
+A failed build or launch raises out of the backend, and nothing here falls
+back to the host or to the plain versions on a CUDA device: the supervisor
+of ``crypto/bls/api.py`` catches the fault, counts it and re-verifies the
+batch on its reference rung.  The fault sites of ``ops/faults.py`` sit
+where the JAX package has them: ``cuda`` at the backend's entry (:691 of
+the JAX module, its ``tpu``), ``subgroup`` at the ψ verdict's launch
+(:350), ``chunk`` before each chunk (:571), and ``verdict`` at the
+deferred verdict read (``dispatch_pipeline.AsyncVerdict.commit``).  On
+the CPU (``device="cpu"``) every wrapper runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from lighthouse_tpu_torch.ops import bigint as bi
 from lighthouse_tpu_torch.ops import bls12_381 as t12
 from lighthouse_tpu_torch.ops import bls_cuda, ec, native_bls
 from lighthouse_tpu_torch.ops import dispatch_pipeline as dp
-from lighthouse_tpu_torch.ops import msm
+from lighthouse_tpu_torch.ops import faults, msm
 
 RAND_BITS = 64
 N_DIGITS = RAND_BITS // 4
@@ -313,8 +319,8 @@ def final_exp_is_one(f, device) -> bool:
     (``fields.final_exp_easy``, one inversion), the hard part on ``device``
     (``final_exp_hard_device``: row 9 on the card, its plain version on the
     CPU), and the result is compared with one.  A fault of row 9, or a
-    result that is not a canonical field element, raises: nothing falls
-    back to the native or Python path."""
+    result that is not a canonical field element (a ``faults.DeviceFault``),
+    raises: nothing here falls back to the native or Python path."""
     from lighthouse_tpu_torch.crypto.bls.fields import Fq12, final_exp_easy
 
     if not device_final_exp(device):
@@ -323,7 +329,8 @@ def final_exp_is_one(f, device) -> bool:
     out = t12.final_exp_hard_device(bi.to_tensor(t12.fq12_to_words(m)[None], device))
     words = bi.to_numpy(out)
     if not all(bi.words_to_int(row) < bi.P_INT for row in words.reshape(12, bi.L)):
-        raise RuntimeError("final_exp_hard: the card returned a non-canonical field element")
+        raise faults.DeviceFault("final_exp_hard: the card returned a non-canonical field "
+                                 "element")
     return t12.fq12_from_words(words) == Fq12.ONE
 
 
@@ -351,6 +358,7 @@ def _dispatch_subgroup_check(sigs, device):
     """Launch the ψ verdict for every signature not yet checked; an
     AsyncVerdict whose commit marks them checked on a pass, or None when a
     pending signature is the point at infinity."""
+    faults.fire("subgroup")
     pending = [s for s in sigs if not s.subgroup_checked()]
     if not pending:
         return dp.AsyncVerdict.immediate(True)
@@ -536,6 +544,10 @@ def verify_signature_sets_device(sets: Sequence[api.SignatureSet], chunk_size: i
     With ``ledger``, per-stage wall seconds are added under subgroup /
     aggregate / prep_host / limbs / pipeline / final_exp (device stages
     synchronized, so only pass one when profiling)."""
+    if not sets:
+        return False
+    if faults.fire("cuda") == "corrupt":
+        return faults.corrupt_verdict()
     return _verify_sets_pipeline(sets, ledger, chunk_size, device=resolve_device(device))
 
 
@@ -598,7 +610,8 @@ def _verify_sets_pipeline(sets, ledger=None, chunk_size=None, *, device, scalars
 
     partials = []
     limbs_s = pipeline_s = 0.0
-    for lo, hi in dp.plan_chunks(n, dp.chunk_size(chunk_size)):
+    for ci, (lo, hi) in enumerate(dp.plan_chunks(n, dp.chunk_size(chunk_size))):
+        faults.fire("chunk", index=ci)
         tc = time.perf_counter()
         args = _chunk_layout(sets[lo:hi], sig_pts[lo:hi], h2cs[lo:hi], pk_rows_x[lo:hi],
                              pk_rows_y[lo:hi], scalars[lo:hi], device)

@@ -2,7 +2,11 @@
 batch verifier.
 
 Counterpart of ``lighthouse_tpu/ops/dispatch_pipeline.py`` (``chunk_size``
-and ``plan_chunks`` :52-102, ``AsyncVerdict``, ``combine_partials`` :167).
+and ``plan_chunks`` :52-102, ``AsyncVerdict`` with its ``verdict`` fault
+site :133-143, ``combine_partials`` :167).  The JAX read's own deadline
+(``watchdog_deadline_s``, :76) is not ported: the BLS supervisor's
+watchdog bounds the whole batch, the read included, and a direct caller of
+a backend has left the supervisor.
 Batches above the chunk size split into fixed power-of-two chunks whose
 host layout runs while the previous chunk's kernels execute (CUDA launches
 return before the card finishes); the per-chunk Fq12 partials multiply down
@@ -25,7 +29,7 @@ import torch
 
 from lighthouse_tpu_torch.ops import bls12_381 as t12
 from lighthouse_tpu_torch.ops import bigint as bi
-from lighthouse_tpu_torch.ops import bls_cuda
+from lighthouse_tpu_torch.ops import bls_cuda, faults
 
 # batches at or below this verify in one chunk; LHGPU_BLS_CHUNK overrides
 # (0 disables chunking)
@@ -81,12 +85,16 @@ class AsyncVerdict:
         return v
 
     def commit(self) -> bool:
-        """Wait for the row (its CUDA event) and read the verdict."""
+        """Wait for the row (its CUDA event) and read the verdict.  A
+        corrupt-mode fault flips the verdict and never marks the signatures
+        checked."""
         if self._result is None:
+            mode = faults.fire("verdict")
             if self._event is not None:
                 self._event.synchronize()
-            self._result = bool(self._ok[: self._n].all().item())
-            if self._result and self._on_pass is not None:
+            result = bool(self._ok[: self._n].all().item())
+            self._result = (not result) if mode == "corrupt" else result
+            if self._result and self._on_pass is not None and mode != "corrupt":
                 self._on_pass()
             self._ok = None
         return self._result

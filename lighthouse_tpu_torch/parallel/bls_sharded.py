@@ -19,7 +19,10 @@ The host prep is the JAX package's: ``ops/bls_backend.prepare_pairs``
 (pure-Python curve arithmetic, each signature's subgroup check with its
 decompression), ``_dispatch_chunk``'s padding, and the chunk plan of
 ``ops/dispatch_pipeline`` with the chunk partials multiplied on
-``mesh[0]``.  There is no recovery: a shard's fault raises.
+``mesh[0]``.  A shard's fault raises out of the backend, for the
+supervisor (``crypto/bls/api.py``) to recover; the fault sites of
+``ops/faults.py`` are the JAX package's: ``chunk`` before each chunk
+(:138) and ``sharded`` at the entry (:180).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from lighthouse_tpu_torch.ops import bigint as bi
 from lighthouse_tpu_torch.ops import bls12_381 as t12
 from lighthouse_tpu_torch.ops import bls_cuda, native_bls
 from lighthouse_tpu_torch.ops import dispatch_pipeline as dp
+from lighthouse_tpu_torch.ops import faults
 from lighthouse_tpu_torch.ops.bls_backend import prepare_pairs
 from lighthouse_tpu_torch.parallel import mesh as pm
 
@@ -171,8 +175,10 @@ def multi_pairing_sharded(pairs, mesh: Sequence, chunk_size: int | None = None,
     to it."""
     mesh = check_bls_mesh(mesh)
     stage = {"prep_host": 0.0, "h2d": 0.0}
-    partials = [_dispatch_chunk(pairs[lo:hi], mesh, stage)
-                for lo, hi in dp.plan_chunks(len(pairs), dp.chunk_size(chunk_size))]
+    partials = []
+    for ci, (lo, hi) in enumerate(dp.plan_chunks(len(pairs), dp.chunk_size(chunk_size))):
+        faults.fire("chunk", index=ci)
+        partials.append(_dispatch_chunk(pairs[lo:hi], mesh, stage))
     t0 = time.perf_counter()
     f = dp.combine_partials(partials)
     pm.synchronize(mesh)
@@ -204,6 +210,8 @@ def verify_signature_sets_sharded(sets: Sequence[api.SignatureSet], *,
     mesh = check_bls_mesh(mesh)
     if not sets:
         return False
+    if faults.fire("sharded") == "corrupt":
+        return faults.corrupt_verdict()
     t0 = time.perf_counter()
     pairs = prepare_pairs(sets)
     if ledger is not None:

@@ -39,6 +39,9 @@ from lighthouse_tpu_torch.chain.data_availability import DataAvailabilityChecker
 from lighthouse_tpu_torch.convert import state_from_ssz
 from lighthouse_tpu_torch.crypto import kzg
 from lighthouse_tpu_torch.types import ChainSpec, make_types
+from torch_no_recovery import no_recovery  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("no_recovery")
 
 CPU = "cpu"
 WIDTH = 16

@@ -44,6 +44,9 @@ from lighthouse_tpu_torch.state_transition import block_processing as bp
 from lighthouse_tpu_torch.state_transition import signature_sets as sigs
 from lighthouse_tpu_torch import types as PT
 from lighthouse_tpu_torch.types import ChainSpec, DepositMessage, make_types
+from torch_no_recovery import no_recovery  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("no_recovery")
 
 CPU = "cpu"
 SPEC = ChainSpec.minimal().with_forks_at(0, "deneb")

@@ -28,6 +28,9 @@ from lighthouse_tpu_torch.chain.beacon_chain import BeaconChain
 from lighthouse_tpu_torch.chain.block_verification import BlockError
 from lighthouse_tpu_torch.convert import state_from_ssz
 from lighthouse_tpu_torch.types import ChainSpec, make_types
+from torch_no_recovery import no_recovery  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("no_recovery")
 
 CPU = "cpu"
 SPEC = ChainSpec.minimal().with_forks_at(0, "deneb")
@@ -95,6 +98,34 @@ def _import_both(j, p, signed, source: str = "gossip", slot: int | None = None):
     return out
 
 
+def _unboosted_weights(fc) -> list:
+    """The node weights without the applied proposer boost.  The JAX chain
+    persists fork choice at finalization, and its ``to_bytes`` takes the
+    boost off the live weights; the port has no persistence and keeps it
+    for the rest of the slot."""
+    pa = fc.proto
+    w = pa.weights[:pa.n_nodes].copy()
+    i = pa.indices.get(fc._applied_boost_root) if fc._applied_boost_root else None
+    while i is not None and i >= 0:
+        w[i] -= fc._applied_boost_amount
+        i = int(pa.parents[i])
+    return w.tolist()
+
+
+def _assert_same_proto(fc_j, fc_p):
+    """The same nodes at the same indices: roots, parents, slots, best
+    children and best descendants, and the same weights but for the
+    proposer boost."""
+    pj, pp = fc_j.proto, fc_p.proto
+    n = pj.n_nodes
+    assert pp.n_nodes == n
+    assert pp.roots == pj.roots
+    assert pp.indices == pj.indices
+    for name in ("parents", "slots", "best_child", "best_descendant"):
+        assert getattr(pp, name)[:n].tolist() == getattr(pj, name)[:n].tolist(), name
+    assert _unboosted_weights(fc_p) == _unboosted_weights(fc_j)
+
+
 def _extend(h, n: int) -> list:
     """n blocks, each with both committees' attestations of the slot before
     (enough participation to justify and finalize)."""
@@ -127,15 +158,16 @@ def test_chain_imports_blocks_as_the_jax_chain_does():
         mine, theirs = getattr(fc_p, name), getattr(fc_j, name)
         assert (mine.epoch, mine.root) == (theirs.epoch, theirs.root), name
     assert fc_p.finalized.epoch > 0
-    # balance snapshots pruned at finalization to the roots the JAX chain
-    # keeps (the anchor's is gone)
+    # both proto-arrays pruned at finalization to the same nodes, so node
+    # indices, and the votes that hold them, agree; the balance snapshots
+    # kept are the same roots (the anchor's is gone)
+    _assert_same_proto(fc_j, fc_p)
+    assert p.anchor_root not in fc_p.proto.indices
     assert set(fc_p._balance_snapshots) == set(fc_j._balance_snapshots)
     assert p.anchor_root not in fc_p._balance_snapshots
-    # votes by block root (the JAX proto-array prunes below the finalized
-    # block, so its node indices shift)
     node, epoch, _queued = fc_p.votes()
-    assert [fc_p.proto.roots[i] for i in node] == \
-        [fc_j.proto.roots[i] for i in fc_j._vote_next[:64]]
+    assert node[:64].tolist() == fc_j._vote_next[:64].tolist()
+    assert fc_p._vote_current[:64].tolist() == fc_j._vote_current[:64].tolist()
     assert epoch.tolist() == fc_j._vote_next_epoch[:64].tolist()
 
     # bad blocks on the same chains
@@ -235,3 +267,41 @@ def test_heads_on_competing_branches_follow_the_jax_chain():
     for c in (j, p):
         c.slot_clock.set_slot(8)
     assert p.recompute_head() == j.recompute_head()
+
+
+def test_finalization_prunes_an_orphaned_branch_as_the_jax_chain_does():
+    """A second block of slot 2 (no votes) beside the canonical
+    chain: it stays in both proto-arrays until the finalized checkpoint
+    moves past genesis, then both prune it (and the anchor) away, keep the
+    same nodes at the same indices, and agree on the head before and
+    after."""
+    h = Harness(64, fork="deneb", real_crypto=False)
+    other = copy.deepcopy(h)
+    j, p = _chains(h, verify=False)
+    orphan = other.produce_block(slot=2, attestations=[])
+    blocks = _extend(h, 34)
+    orphan_root = orphan.message.hash_tree_root()
+    pruned_at = None
+    for k, b in enumerate(blocks):
+        if int(b.message.slot) == 3:
+            # the slot's proposer already proposed: a repeat on gossip, so rpc
+            assert _import_both(j, p, orphan, source="rpc", slot=3) == [orphan_root] * 2
+        jr, pr = _import_both(j, p, b)
+        assert pr == jr and isinstance(pr, bytes)
+        assert p.head_root == j.head_root
+        in_j, in_p = orphan_root in j.fork_choice.proto, orphan_root in p.fork_choice.proto
+        assert in_j == in_p
+        if int(b.message.slot) >= 3 and not in_p and pruned_at is None:
+            pruned_at = k
+        _assert_same_proto(j.fork_choice, p.fork_choice)
+    assert pruned_at is not None and p.fork_choice.finalized.epoch > 0
+    assert p.anchor_root not in p.fork_choice.proto
+    assert p.fork_choice.proto.n_nodes < len(blocks) + 2
+    # the pruned indices take new blocks as the JAX chain's do
+    nxt = h.produce_block(attestations=[h.attest()])
+    jr, pr = _import_both(j, p, nxt)
+    assert pr == jr and isinstance(pr, bytes)
+    _assert_same_proto(j.fork_choice, p.fork_choice)
+    for c in (j, p):
+        c.slot_clock.set_slot(int(nxt.message.slot) + 1)
+    assert p.recompute_head() == j.recompute_head() == pr

@@ -38,6 +38,9 @@ from lighthouse_tpu_torch.ops import bigint as bi
 from lighthouse_tpu_torch.ops import bls12_381 as t12
 from lighthouse_tpu_torch.ops import bls_backend as bb
 from lighthouse_tpu_torch.ops import bls_cuda, ec, msm
+from torch_no_recovery import no_recovery  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("no_recovery")
 
 CPU = torch.device("cpu")
 

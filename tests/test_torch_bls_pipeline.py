@@ -33,6 +33,9 @@ from lighthouse_tpu_torch.ops import bls_backend as bb
 from lighthouse_tpu_torch.ops import bls12_381 as t12
 from lighthouse_tpu_torch.ops import dispatch_pipeline as dp
 from lighthouse_tpu_torch.ops import ec
+from torch_no_recovery import no_recovery  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("no_recovery")
 
 CPU = torch.device("cpu")
 SCALARS = [0x9E3779B97F4A7C15, 0x1234567890ABCDEF, 0xFEDCBA9876543210, 0x0F0F0F0F0F0F0F0F,

@@ -22,6 +22,9 @@ from lighthouse_tpu_torch.convert import signature_sets_from_bytes
 from lighthouse_tpu_torch.crypto import bls
 from lighthouse_tpu_torch.crypto.bls import api
 from lighthouse_tpu_torch.ops import bls_backend as bb
+from torch_no_recovery import no_recovery  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("no_recovery")
 
 
 @pytest.fixture(autouse=True)

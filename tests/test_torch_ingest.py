@@ -13,8 +13,12 @@ sets; the port runs with its pubkey plane forced to the device rung (row
 11's plain version on the CPU) and to the reference rung.  The verified
 count, the (entry, reason) rejects, the naive pool, the observed attesters
 and the fork-choice votes must be equal, and a second pass of the same
-blobs must reject the same way in both.  A fault inside row 11 must
-propagate out of ``process_wire_batch``.
+blobs must reject the same way in both, with no fault caught on the way.
+An error inside row 11 that is not a device fault (a bug) propagates out
+of ``process_wire_batch``.  A device fault inside row 11, in the fold and
+in the native signature MSM is each recovered (the plane's reference rung,
+unmerged lanes, host point arithmetic) with the same verdicts, and counted
+in the BLS supervisor's ``faults()`` and ``recoveries()``.
 """
 
 import numpy as np
@@ -31,8 +35,10 @@ from lighthouse_tpu_torch.chain import columnar_ingest as ci
 from lighthouse_tpu_torch.chain import pubkey_plane
 from lighthouse_tpu_torch.chain.beacon_chain import BeaconChain
 from lighthouse_tpu_torch.convert import state_from_ssz
-from lighthouse_tpu_torch.ops import msm
+from lighthouse_tpu_torch.crypto.bls import api as pbls
+from lighthouse_tpu_torch.ops import faults, msm, native_bls
 from lighthouse_tpu_torch.types import ChainSpec, make_types
+from torch_no_recovery import no_recovery  # noqa: F401  (a fixture)
 
 SLOT = 0
 
@@ -129,6 +135,7 @@ def jax_run(world):
     return first, second, _jax_view(c, 0)
 
 
+@pytest.mark.usefixtures("no_recovery")
 @pytest.mark.parametrize("rung", ["device", "reference"])
 def test_wire_batch_matches_the_jax_package(world, jax_run, rung, monkeypatch):
     h, blobs = world
@@ -151,7 +158,14 @@ def test_wire_batch_matches_the_jax_package(world, jax_run, rung, monkeypatch):
     assert _port_view(c, 0) == jview
 
 
+EXPECTED_REJECTS = {1: "invalid_signature", 4: "unknown_target_root", 6: "invalid_signature",
+                    9: "unknown_target_root", 10: "duplicate_in_batch",
+                    11: "aggregation_bits_length", 12: "decode_error"}
+
+
 def test_a_row_11_fault_propagates(world, monkeypatch):
+    """An error of row 11 that is not a device fault is a bug: it raises
+    out of the batch, and nothing is counted or recovered."""
     h, blobs = world
     monkeypatch.setenv("LHGPU_PUBKEY_BACKEND", "device")
     pubkey_plane.reset_pubkey_plane("cpu")
@@ -160,8 +174,72 @@ def test_a_row_11_fault_propagates(world, monkeypatch):
         raise RuntimeError("injected row-11 fault")
 
     monkeypatch.setattr(msm, "gather_fold_plain", boom)
+    counted = pbls.faults(), pbls.recoveries()
     with pytest.raises(RuntimeError, match="injected row-11 fault"):
         ci.process_wire_batch(_port_chain(h), [(b, False) for b in blobs])
+    assert (pbls.faults(), pbls.recoveries()) == counted
+
+
+def test_a_row_11_device_fault_is_recovered_and_counted(world, monkeypatch):
+    """A device fault of row 11 goes to the supervisor's counters, not to
+    the caller: the plane folds the batch again on its reference rung, and
+    the batch verifies as it does without the fault."""
+    h, blobs = world
+    monkeypatch.setenv("LHGPU_PUBKEY_BACKEND", "device")
+    plane = pubkey_plane.reset_pubkey_plane("cpu")
+    pbls.reset_supervisor()
+
+    def boom(*a, **k):
+        raise faults.InjectedFault("injected row-11 fault")
+
+    monkeypatch.setattr(msm, "gather_fold_plain", boom)
+    faults0, rec0 = pbls.faults(), pbls.recoveries()
+    out = ci.process_wire_batch(_port_chain(h), [(b, False) for b in blobs])
+    assert out.verified == len(blobs) - 7 and dict(out.rejects) == EXPECTED_REJECTS
+    assert plane.folds == {"device": 0, "reference": 1}
+    assert pbls.faults().get(("pubkey_device", "raise"), 0) == \
+        faults0.get(("pubkey_device", "raise"), 0) + 1
+    assert pbls.recoveries().get("pubkey_plane", 0) == rec0.get("pubkey_plane", 0) + 1
+    pbls.reset_supervisor()
+
+
+def _break(where, plane, monkeypatch, exc):
+    def boom(*a, **k):
+        raise exc
+
+    if where == "fold_lanes":
+        monkeypatch.setattr(plane, "fold", boom)
+    else:
+        monkeypatch.setattr(native_bls, "g2_lincomb_groups", boom)
+
+
+@pytest.mark.parametrize("where", ["fold_lanes", "sig_accs"])
+def test_fold_and_signature_msm_faults_are_recovered_and_counted(world, where, monkeypatch):
+    """A fold that faults leaves its lanes unmerged, and a native signature
+    MSM that faults gives way to host point arithmetic: the same verdicts,
+    one recovery counted each."""
+    h, blobs = world
+    monkeypatch.setenv("LHGPU_PUBKEY_BACKEND", "reference")
+    plane = pubkey_plane.reset_pubkey_plane("cpu")
+    _break(where, plane, monkeypatch, faults.InjectedFault(f"injected {where} fault"))
+    rec0 = pbls.recoveries().get(where, 0)
+    out = ci.process_wire_batch(_port_chain(h), [(b, False) for b in blobs])
+    assert out.verified == len(blobs) - 7 and dict(out.rejects) == EXPECTED_REJECTS
+    assert pbls.recoveries().get(where, 0) == rec0 + 1
+
+
+@pytest.mark.parametrize("where", ["fold_lanes", "sig_accs"])
+def test_a_bug_in_the_fold_or_signature_msm_raises(world, where, monkeypatch):
+    """Only a device fault is recovered: a TypeError of either call (a bug
+    of the calling code) raises out of the batch, and nothing is counted."""
+    h, blobs = world
+    monkeypatch.setenv("LHGPU_PUBKEY_BACKEND", "reference")
+    plane = pubkey_plane.reset_pubkey_plane("cpu")
+    _break(where, plane, monkeypatch, TypeError(f"a bug in {where}"))
+    counted = pbls.faults(), pbls.recoveries()
+    with pytest.raises(TypeError, match=f"a bug in {where}"):
+        ci.process_wire_batch(_port_chain(h), [(b, False) for b in blobs])
+    assert (pbls.faults(), pbls.recoveries()) == counted
 
 
 def test_electra_entries_raise(world):
@@ -170,6 +248,7 @@ def test_electra_entries_raise(world):
         ci.process_wire_batch(_port_chain(h), [(blobs[0], True)])
 
 
+@pytest.mark.usefixtures("no_recovery")
 def test_the_flood_cell_verifies_and_its_tampered_batch_rejects(monkeypatch):
     """``testing.flood_cell`` and ``flood_tampered`` at a small size (the
     smoke run's cell is 65,536 validators): every attestation verifies

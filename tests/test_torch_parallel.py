@@ -65,6 +65,9 @@ from lighthouse_tpu_torch.parallel import mesh as pm
 from lighthouse_tpu_torch.parallel import msm_sharded as ms
 from lighthouse_tpu_torch.state_transition import epoch_device, per_slot_processing
 from lighthouse_tpu_torch.types import ChainSpec
+from torch_no_recovery import no_recovery  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("no_recovery")
 
 CPU = torch.device("cpu")
 

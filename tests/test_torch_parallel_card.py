@@ -20,8 +20,9 @@ from lighthouse_tpu_torch.parallel import dryrun_worker as dw
 from lighthouse_tpu_torch.parallel import epoch_sharded as es
 from lighthouse_tpu_torch.parallel import msm_sharded as ms
 from lighthouse_tpu_torch.state_transition import epoch_device, epoch_processing
+from torch_no_recovery import no_recovery  # noqa: F401  (a fixture)
 
-pytestmark = pytest.mark.cuda
+pytestmark = [pytest.mark.cuda, pytest.mark.usefixtures("no_recovery")]
 
 
 @pytest.fixture

@@ -11,7 +11,9 @@
 - The kernel's lane code (``csrc/bls12_381.cuh``), built for the host with
   g++ and a multiply counter, equals the plain version, and its products
   equal ``bls_cuda.gather_fold_fp_muls``.
-- A fault inside the fold propagates out of ``plane.fold``.
+- An error inside the fold that is not a device fault (a bug) raises; a
+  device fault is recovered on the reference rung and counted in the BLS
+  supervisor's ``faults()`` and ``recoveries()``.
 The test marked ``cuda`` runs the kernel itself against the plain version.
 """
 
@@ -146,17 +148,46 @@ def test_table_append_rebuild_and_prefix_match_the_jax_plane():
         assert tx.shape[0] == msm.bucket(port.table_rows)
 
 
-def test_a_fault_inside_the_fold_propagates(monkeypatch):
+def _failing_fold(monkeypatch, exc):
     monkeypatch.setenv("LHGPU_PUBKEY_BACKEND", "device")
     plane = pubkey_plane.PubkeyPlane(CPU)
 
     def boom(*a, **k):
-        raise RuntimeError("injected row-11 fault")
+        raise exc
 
     monkeypatch.setattr(msm, "gather_fold_plain", boom)
     reg = _Reg(_points(4))
+    return plane, (reg, np.arange(4), np.asarray(_scalars(4, 3), np.uint64), np.zeros(4, int), 1)
+
+
+def test_a_fault_inside_the_fold_propagates(monkeypatch):
+    """An error that is not a device fault is a bug: it raises, and
+    nothing is counted or recovered."""
+    from lighthouse_tpu_torch.crypto.bls import api
+
+    plane, args = _failing_fold(monkeypatch, RuntimeError("injected row-11 fault"))
+    counted = api.faults(), api.recoveries()
     with pytest.raises(RuntimeError, match="injected row-11 fault"):
-        plane.fold(reg, np.arange(4), np.asarray(_scalars(4, 3), np.uint64), np.zeros(4, int), 1)
+        plane.fold(*args)
+    assert (api.faults(), api.recoveries()) == counted
+
+
+def test_a_device_fault_inside_the_fold_is_recovered_and_counted(monkeypatch):
+    """A device fault goes to the BLS supervisor's counters, not to the
+    caller: the fold is done again on the reference rung and gives its
+    answer, one fault and one recovery counted."""
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.ops import faults
+
+    plane, args = _failing_fold(monkeypatch, faults.InjectedFault("injected row-11 fault"))
+    faults0, rec0 = api.faults(), api.recoveries()
+    got = plane.fold(*args)
+    assert plane.folds == {"device": 0, "reference": 1}
+    assert got == pubkey_plane.PubkeyPlane._fold_host(*args)
+    assert api.faults()[("pubkey_device", "raise")] == faults0.get(("pubkey_device", "raise"),
+                                                                   0) + 1
+    assert api.recoveries()["pubkey_plane"] == rec0.get("pubkey_plane", 0) + 1
+    api.reset_supervisor()                  # close the pubkey breaker the fault opened
 
 
 @pytest.fixture(scope="module")

@@ -191,7 +191,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "state_transition/epoch_processing.py", "state_transition/misc.py",
             "state_transition/shuffle.py", "ops/fr.py", "crypto/kzg.py", "parallel/mesh.py",
             "parallel/bls_sharded.py", "parallel/dryrun_worker.py", "parallel/epoch_sharded.py",
-            "parallel/msm_sharded.py"} <= names
+            "parallel/msm_sharded.py", "crypto/das.py", "ops/faults.py",
+            "crypto/bls/api.py", "fork_choice/proto_array.py"} <= names
     offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert offenders == []
 
